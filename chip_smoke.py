@@ -1,0 +1,324 @@
+"""Drives the PyTorch/CUDA port (qzk_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order:
+  build    build the native (g++) and CUDA (nvcc) libraries;
+  circuit  build the Wormhole circuit (non-zk standard recursion config);
+  kernels  hold each CUDA kernel against its plain torch version, bit
+           for bit, at the circuit's main-path shapes and on edge inputs;
+  prove    prove it from the synthetic inputs through the staged device
+           pipeline, time each phase with CUDA events after a warm-up
+           prove, count kernel launches, and check the proof's sha256;
+  verify   verify the proof on the host, and reject a tampered one;
+  report   one JSON line of kernel times and bounds, the card's name
+           and power limit, and the final status line.
+
+Every phase prints one line with its elapsed seconds before its result.
+Any failure ends the run with a non-zero exit code and no status line.
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from qzk_tpu_torch.ops import goldilocks as gl  # noqa: E402
+from qzk_tpu_torch.ops import goldilocks_torch as gt  # noqa: E402
+from qzk_tpu_torch.ops import poseidon_cuda as pc  # noqa: E402
+from qzk_tpu_torch.ops import poseidon_torch as pt  # noqa: E402
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s, and the float32 rate outside the tensor cores, here applied
+# to 32-bit integer multiplies (the SM issues those at half that rate,
+# so the bound is a lower bound).
+PEAK_BYTES = 3.35e12
+PEAK_SCALAR_OPS = 67e12
+
+# 32-bit integer multiplies of one Poseidon permutation: a 64x64-bit
+# product is four 32x32 partial products, and its reduction one more;
+# 8 full rounds of 12 S-boxes and 22 partial rounds of 1 S-box, at 4
+# products an S-box; 30 MDS layers of 144 small products on each of the
+# two 32-bit halves, plus one reduction per lane.
+MULMODS_PER_PERM = 4 * (8 * 12 + 22)
+INT_MULS_PER_PERM = 5 * MULMODS_PER_PERM + 30 * (144 * 2 + 12)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    """Prints '[phase] <name>: <seconds> s' when the block ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        log(f"[phase] {self.name}: {self.seconds:.3f} s")
+        return False
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def edge_rows(rng, n: int, w: int, dev) -> torch.Tensor:
+    """Random 64-bit lanes (canonical or not) with 0, 1, p-1, 2^63 and
+    2^64-1 planted in every column."""
+    x = rng.integers(0, 1 << 64, size=(n, w), dtype=np.uint64)
+    edges = np.array([0, 1, gl.P - 1, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
+    k = min(n, len(edges))
+    x[:k, :] = edges[:k, None]
+    x[-k:, :] = edges[:k, None][::-1]
+    return gt.from_u64(x, dev)
+
+
+def require_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """Bit-for-bit check (the tolerance is 0: integer field arithmetic).
+    Returns the largest |got - want| over the uint64 values, and raises
+    unless it is 0."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = gt.to_u64(got), gt.to_u64(want)
+    err = int(np.max(np.maximum(g, w) - np.minimum(g, w), initial=0))
+    if err:
+        raise AssertionError(
+            f"{name}: {int((g != w).sum())} of {g.size} words differ (max |err| {err})")
+    return err
+
+
+def phase_build(state) -> None:
+    from qzk_tpu_torch import native
+
+    with Phase("build"):
+        t0 = time.perf_counter()
+        native.get_lib()
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        so = pc.library_path()
+        t_cuda = time.perf_counter() - t0
+    if native.get_lib() is None:
+        raise RuntimeError("native host library did not build")
+    log(f"build: native {t_native:.2f} s, cuda {t_cuda:.2f} s ({os.path.basename(so)})")
+    with open(so + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+
+
+def kernel_widths(state) -> list[int]:
+    """K1 widths of the circuit's main path."""
+    common = state["common"]
+    cfg = common.config
+    pre_w = len(common.gates) + cfg.num_constants + cfg.num_routed_wires
+    widths = {8, cfg.num_wires, common.num_zs_partial_products_polys,
+              common.num_quotient_polys, pre_w}
+    for ab in cfg.fri_config.reduction_arity_bits(common.degree_bits):
+        widths.add(2 << ab)
+    return sorted(widths)
+
+
+def phase_kernels(state) -> None:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261017)
+    lde = state["common"].lde_size
+    results = []
+    err = {"hash_rows": 0, "permute": 0}
+    with Phase("kernels"):
+        for w in kernel_widths(state):
+            for n in (lde, 1037):
+                x = edge_rows(rng, n, w, dev)
+                got = pc.hash_no_pad_rows(x)
+                torch.cuda.synchronize()
+                err["hash_rows"] = max(err["hash_rows"], require_equal(
+                    f"K1 w={w} n={n}", got, pt.hash_no_pad_batch(x)))
+                results.append(f"K1 w={w} n={n}")
+        left, right = edge_rows(rng, 777, 4, dev), edge_rows(rng, 777, 4, dev)
+        err["hash_rows"] = max(err["hash_rows"], require_equal(
+            "K1 two_to_one", pc.two_to_one(left, right), pt.two_to_one_batch(left, right)))
+        for b in (1 << 18, 999):
+            s = edge_rows(rng, b, 12, dev)
+            got = pc.permute(s)
+            torch.cuda.synchronize()
+            err["permute"] = max(err["permute"], require_equal(f"K2 b={b}", got, pt.permute(s)))
+            results.append(f"K2 b={b}")
+    state["max_abs_err"] = err
+    log(f"kernels: bit-exact against the plain torch versions: {', '.join(results)}")
+
+
+def time_kernels(state) -> list[dict]:
+    """One record per kernel at the main path's largest shapes."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    common = state["common"]
+    n, w = common.lde_size, common.config.num_wires
+    rows = edge_rows(rng, n, w, dev)
+    perms = n * max(1, -(-w // 8))
+    k1_ms = cuda_ms(lambda: pc.hash_no_pad_rows(rows))
+    k1_plain = cuda_ms(lambda: pt.hash_no_pad_batch(rows), iters=2, warmup=1)
+    k1_bytes = rows.numel() * 8 + n * 4 * 8
+    k1_ops = perms * INT_MULS_PER_PERM
+    b = 1 << 18
+    states = edge_rows(rng, b, 12, dev)
+    k2_ms = cuda_ms(lambda: pc.permute(states))
+    k2_plain = cuda_ms(lambda: pt.permute(states), iters=2, warmup=1)
+    k2_bytes = 2 * states.numel() * 8
+    k2_ops = b * INT_MULS_PER_PERM
+    launches = state["launches"]
+
+    def rec(name, src, replaces, key, ms, plain, nbytes, ops, shape):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_SCALAR_OPS * 1e3
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": state["max_abs_err"][key],
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": shape,
+        }
+
+    return [
+        rec("K1 hash_no_pad_rows", "qzk_tpu_torch/ops/csrc/poseidon.cu",
+            "qzk_tpu/ops/poseidon_pallas.py:354", "hash_rows", k1_ms, k1_plain,
+            k1_bytes, k1_ops, [n, w]),
+        rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
+            "qzk_tpu/ops/poseidon_pallas.py:275", "permute", k2_ms, k2_plain,
+            k2_bytes, k2_ops, [b, 12]),
+    ]
+
+
+def phase_circuit(state) -> None:
+    from qzk_tpu_torch.models.wormhole.circuit import WormholeCircuit
+    from qzk_tpu_torch.plonk.config import CircuitConfig
+
+    with Phase("circuit"):
+        circuit = WormholeCircuit(CircuitConfig.standard_recursion_config())
+        targets = circuit.targets()
+        data = circuit.build_circuit()
+    state.update(data=data, targets=targets, common=data.common)
+    log(f"circuit: degree 2^{data.common.degree_bits}, "
+        f"{len(data.common.gates)} gate types")
+
+
+def phase_prove(state) -> None:
+    from qzk_tpu_torch.models.wormhole.fixtures import (
+        WORMHOLE_NONZK_PROOF_SHA256,
+        synthetic_circuit_inputs,
+    )
+    from qzk_tpu_torch.models.wormhole.prover import WormholeProver
+    from qzk_tpu_torch.plonk.prover import PhaseTimer
+
+    data, cfg = state["data"], state["common"].config
+
+    def prove(timer=None):
+        prover = WormholeProver(cfg, _circuit_data=data.prover_data(),
+                                _targets=state["targets"], device="cuda")
+        return prover.commit(synthetic_circuit_inputs()).prove(timer=timer)
+
+    with Phase("prove (first, includes per-circuit device setup)"):
+        prove()
+    timer = PhaseTimer(cuda_events=True)
+    pc.reset_launches()
+    with Phase("prove (warm)") as ph:
+        proof = prove(timer)
+    state["launches"] = dict(pc.LAUNCHES)
+    for name, ms in timer.results():
+        log(f"  prove phase {name}: {ms / 1e3:.4f} s")
+    log(f"prove: {ph.seconds:.3f} s; launches K1 {state['launches']['hash_rows']}, "
+        f"K2 {state['launches']['permute']}")
+    for key in ("hash_rows", "permute"):
+        if state["launches"][key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the main path")
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    if digest != WORMHOLE_NONZK_PROOF_SHA256:
+        raise AssertionError(f"proof sha256 {digest} != {WORMHOLE_NONZK_PROOF_SHA256}")
+    log(f"prove: proof sha256 {digest} matches the JAX package's")
+    state["proof"] = proof
+
+
+def phase_verify(state) -> None:
+    import copy
+
+    from qzk_tpu_torch.models.wormhole.verifier import WormholeVerifier
+    from qzk_tpu_torch.plonk.fri import VerificationError
+
+    data, proof = state["data"], state["proof"]
+    verifier = WormholeVerifier.new(state["common"].config, data.verifier_data())
+    with Phase("verify"):
+        verifier.verify(proof)
+        bad = copy.deepcopy(proof)
+        bad.public_inputs[0] = np.uint64((int(bad.public_inputs[0]) + 1) % gl.P)
+        try:
+            verifier.verify(bad)
+        except VerificationError:
+            rejected = True
+        else:
+            rejected = False
+    if not rejected:
+        raise AssertionError("the verifier accepted a tampered proof")
+    log("verify: proof verifies; tampered public input rejected")
+
+
+def phase_report(state) -> None:
+    with Phase("report"):
+        kernels = time_kernels(state)
+    log(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    log(smi.stdout.strip().splitlines()[0])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    state: dict = {}
+    t0 = time.perf_counter()
+    for phase in (phase_build, phase_circuit, phase_kernels, phase_prove,
+                  phase_verify, phase_report):
+        phase(state)
+    log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,2 @@
+"""Application circuits ("models"): the Quantus wormhole
+message-verification circuit family."""

@@ -1,0 +1,93 @@
+"""The prove pipeline (reference analog: ProverCircuitData::prove,
+SURVEY.md §3.1 steps 1-5):
+
+  1. run witness generators (levelized batches) -> wire values   (host)
+  2. wire polys -> coset LDE -> Merkle-cap commit          } device
+  3. permutation Zs + partial products -> LDE -> commit    } (torch +
+  4. quotient: evaluate all constraints on the LDE coset,  }  CUDA
+     divide by Z_H, split, commit                          }  kernels)
+  5. openings at zeta / g*zeta + batched FRI opening proof }
+
+Steps 2-5 run in plonk/device_prover.py on the device the caller names:
+CUDA by default, the CPU when asked (the plain torch versions of the
+kernels then run).
+
+Transcript spec (normative):
+  observe circuit digest, observe H(public_inputs);
+  observe wires cap -> betas[2], gammas[2];
+  observe zs/partial cap -> alphas[2];
+  observe quotient cap -> zeta (ext);
+  observe openings (preprocessed, wires, zs_partial, quotient,
+  zs_partial@g*zeta) -> fri alpha (ext); then FRI (fri.py).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import poseidon as pos
+from ..utils.device import resolve_device
+from .proof import ProofWithPublicInputs
+from .witness import run_generators
+
+
+class PhaseTimer:
+    """Time of each prove phase.  With cuda_events=True each mark
+    records a CUDA event on the current stream and results() gives the
+    device-clock time between marks; otherwise the host clock."""
+
+    def __init__(self, cuda_events: bool = False):
+        self._cuda = cuda_events
+        self._marks: list = []
+        self._start = self._now()
+
+    def _now(self):
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        self._marks.append((name, self._now()))
+
+    def results(self) -> list[tuple[str, float]]:
+        """[(phase, ms)] in order."""
+        if self._cuda:
+            torch.cuda.synchronize()
+        out, prev = [], self._start
+        for name, t in self._marks:
+            ms = prev.elapsed_time(t) if self._cuda else (t - prev) * 1e3
+            out.append((name, ms))
+            prev = t
+        return out
+
+
+def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
+          ) -> ProofWithPublicInputs:
+    """Prove the circuit for the partial witness `pw` on `device`
+    (CUDA unless the caller passes "cpu")."""
+    dev = resolve_device(device)
+    if common.config.zero_knowledge:
+        raise NotImplementedError(
+            "zero-knowledge proving is not ported yet: its blinding needs a "
+            "bit-exact port of jax.random threefry (the zk slice)"
+        )
+    values, _known = run_generators(prover_only.plan, pw)
+    if timer is not None:
+        timer.mark("witness")
+    public_inputs = values[
+        prover_only.plan.roots[
+            np.asarray(prover_only.public_inputs, dtype=np.int64)
+        ]
+    ] if prover_only.public_inputs else np.zeros(0, dtype=np.uint64)
+    pi_hash = pos.hash_no_pad(public_inputs)
+
+    from .device_prover import device_prove
+
+    return device_prove(
+        common, prover_only, values, public_inputs, pi_hash, dev, timer
+    )

@@ -1,0 +1,343 @@
+"""Witness generation: PartialWitness + levelized batched generators.
+
+Semantics parity with the reference's witness layer (PartialWitness
+set_target / set_target_arr / set_hash_target / set_bool_target, and the
+"set twice with different values" conflict detection its negative tests
+rely on — reference wormhole/tests/src/circuit/storage_proof_tests.rs:31-100).
+
+Vectorized design: instead of a scalar worklist solver, the builder's
+generator list (already topologically ordered by construction) is
+levelized once at build time into batches of independent same-kind
+generators; each batch executes as one vectorized numpy sweep (Poseidon
+batches run the full (B, 12) batched permutation).  This keeps host-side
+witness generation off the critical path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..ops import goldilocks as gl
+from .builder import BoolTarget, HashOutTarget
+
+
+class WitnessConflict(ValueError):
+    """Raised when a target is set twice with different values."""
+
+    def __init__(self, target):
+        super().__init__(
+            f"set twice with different values: target {target}"
+        )
+
+
+class PartialWitness:
+    def __init__(self):
+        self.values: dict[int, int] = {}
+
+    def set_target(self, t: int, value) -> None:
+        value = int(value) % gl.P
+        existing = self.values.get(t)
+        if existing is not None and existing != value:
+            raise WitnessConflict(t)
+        self.values[t] = value
+
+    def set_target_arr(self, targets, values) -> None:
+        values = np.asarray(values, dtype=np.uint64).ravel()
+        assert len(targets) == len(values), (
+            f"target/value length mismatch: {len(targets)} vs {len(values)}"
+        )
+        for t, v in zip(targets, values):
+            self.set_target(t, int(v))
+
+    def set_hash_target(self, h: HashOutTarget, digest) -> None:
+        digest = np.asarray(digest, dtype=np.uint64).ravel()
+        assert digest.shape == (4,)
+        self.set_target_arr(list(h.elements), digest)
+
+    def set_bool_target(self, b: BoolTarget, value: bool) -> None:
+        self.set_target(b.target, 1 if value else 0)
+
+
+# ---------------------------------------------------------------------------
+# Levelized generator batches (built once per circuit)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GeneratorBatches:
+    """Precompiled batch plan: list of (kind, payload) in execution order."""
+
+    batches: list
+    num_targets: int
+    roots: np.ndarray  # target -> union-find root
+
+
+def compile_generators(builder) -> GeneratorBatches:
+    # all union-find roots at once (pointer jumping — the per-target
+    # python _find walk was ~0.3 s of the circuit build)
+    parent = np.asarray(builder._parent, dtype=np.int64)
+    roots = parent.copy()
+    while True:
+        nxt = roots[roots]
+        if np.array_equal(nxt, roots):
+            break
+        roots = nxt
+    target_level: dict[int, int] = {}
+
+    def lvl_of(t) -> int:
+        return target_level.get(int(roots[t]), 0)
+
+    staged: dict[tuple, list] = {}
+    for gen in builder.generators:
+        kind = gen.kind
+        if kind == "const":
+            t, value = gen.data
+            level = 1
+            key = (level, "const")
+            staged.setdefault(key, []).append((t, value))
+            outs = [t]
+        elif kind == "arith":
+            c0, c1, m0, m1, a, out = gen.data
+            level = 1 + max(lvl_of(m0), lvl_of(m1), lvl_of(a))
+            key = (level, "arith")
+            staged.setdefault(key, []).append((c0, c1, m0, m1, a, out))
+            outs = [out]
+        elif kind == "inv_or_zero":
+            x, out = gen.data
+            level = 1 + lvl_of(x)
+            key = (level, "inv_or_zero")
+            staged.setdefault(key, []).append((x, out))
+            outs = [out]
+        elif kind == "bits":
+            value_t, bit_ts = gen.data
+            level = 1 + lvl_of(value_t)
+            key = (level, "bits", len(bit_ts))
+            staged.setdefault(key, []).append((value_t, bit_ts))
+            outs = list(bit_ts)
+        elif kind == "poseidon":
+            in_ts, swap_t, internal, out_ts = gen.data
+            level = 1 + max(
+                max(lvl_of(t) for t in in_ts), lvl_of(swap_t)
+            )
+            key = (level, "poseidon")
+            staged.setdefault(key, []).append(
+                (in_ts, swap_t, internal, out_ts)
+            )
+            outs = list(out_ts) + [t for _, t in internal]
+        else:  # pragma: no cover
+            raise ValueError(f"unknown generator kind {kind}")
+        for t in outs:
+            r = int(roots[t])
+            target_level[r] = max(target_level.get(r, 0), level)
+
+    batches = [staged[k] for k in sorted(staged, key=lambda k: (k[0], str(k)))]
+    kinds = [k[1] for k in sorted(staged, key=lambda k: (k[0], str(k)))]
+    return GeneratorBatches(
+        batches=list(zip(kinds, batches)),
+        num_targets=builder._num_targets,
+        roots=roots,
+    )
+
+
+class _NativePlan:
+    """Flat-array encoding of a GeneratorBatches plan for the one-call
+    C executor (native/poseidon_native.cc run_witness_plan).  All ids
+    are pre-resolved union-find roots; built once per circuit."""
+
+    def __init__(self, plan: "GeneratorBatches"):
+        from ..ops import poseidon as pos
+        from .gates import PoseidonGate
+
+        g = PoseidonGate()
+        canonical = (
+            [g.wire_delta(i) for i in range(4)]
+            + [g.wire_full0(r, i) for r in range(1, 4) for i in range(12)]
+            + [g.wire_partial(pr) for pr in range(pos.N_PARTIAL_ROUNDS)]
+            + [g.wire_full1(r, i) for r in range(4) for i in range(12)]
+        )
+        roots = plan.roots
+        table = []
+        const_ids, const_vals = [], []
+        a_c0, a_c1, a_m0, a_m1, a_a, a_out = [], [], [], [], [], []
+        inv_x, inv_out = [], []
+        bits_val, bits_out = [], []
+        pos_in, pos_swap, pos_internal, pos_out = [], [], [], []
+
+        def r(t):
+            return int(roots[t])
+
+        for kind, items in plan.batches:
+            if kind == "const":
+                table.append([0, len(const_ids), len(items), 0, 0, 0])
+                for t, v in items:
+                    const_ids.append(r(t))
+                    const_vals.append(int(v) % gl.P)
+            elif kind == "arith":
+                table.append([1, len(a_c0), len(items), 0, 0, 0])
+                for c0, c1, m0, m1, a, out in items:
+                    a_c0.append(int(c0) % gl.P)
+                    a_c1.append(int(c1) % gl.P)
+                    a_m0.append(r(m0))
+                    a_m1.append(r(m1))
+                    a_a.append(r(a))
+                    a_out.append(r(out))
+            elif kind == "inv_or_zero":
+                table.append([2, len(inv_x), len(items), 0, 0, 0])
+                for x, out in items:
+                    inv_x.append(r(x))
+                    inv_out.append(r(out))
+            elif kind == "bits":
+                nbits = len(items[0][1])
+                table.append(
+                    [3, len(bits_val), len(items), nbits, len(bits_out), 0]
+                )
+                for value_t, bit_ts in items:
+                    assert len(bit_ts) == nbits
+                    bits_val.append(r(value_t))
+                    bits_out.extend(r(t) for t in bit_ts)
+            elif kind == "poseidon":
+                table.append([4, len(pos_swap), len(items), 0, 0, 0])
+                for in_ts, swap_t, internal, out_ts in items:
+                    assert [w for w, _ in internal] == canonical
+                    pos_in.extend(r(t) for t in in_ts)
+                    pos_swap.append(r(swap_t))
+                    pos_internal.extend(r(t) for _, t in internal)
+                    pos_out.extend(r(t) for t in out_ts)
+            else:  # pragma: no cover
+                raise ValueError(f"unknown generator kind {kind}")
+
+        def i64(x):
+            return np.ascontiguousarray(x, dtype=np.int64)
+
+        def u64(x):
+            return np.ascontiguousarray(x, dtype=np.uint64)
+
+        self.batch_table = i64(table).reshape(-1, 6)
+        self.const_ids, self.const_vals = i64(const_ids), u64(const_vals)
+        self.arith_c0, self.arith_c1 = u64(a_c0), u64(a_c1)
+        self.arith_m0, self.arith_m1 = i64(a_m0), i64(a_m1)
+        self.arith_a, self.arith_out = i64(a_a), i64(a_out)
+        self.inv_x, self.inv_out = i64(inv_x), i64(inv_out)
+        self.bits_val, self.bits_out = i64(bits_val), i64(bits_out)
+        self.pos_in, self.pos_swap = i64(pos_in), i64(pos_swap)
+        self.pos_internal, self.pos_out = i64(pos_internal), i64(pos_out)
+
+
+def _native_plan_for(plan: GeneratorBatches) -> "_NativePlan | None":
+    try:
+        cached = plan._native_plan
+    except AttributeError:
+        cached = None
+    if cached is None:
+        try:
+            cached = _NativePlan(plan)
+        except AssertionError:  # unexpected layout: fall back to numpy
+            cached = False
+        plan._native_plan = cached
+    return cached or None
+
+
+def run_generators(
+    plan: GeneratorBatches, pw: PartialWitness
+) -> tuple[np.ndarray, np.ndarray]:
+    """Execute all generator batches; returns (values, known) arrays
+    indexed by union-find root."""
+    from .gates import poseidon_trace
+
+    n = plan.num_targets
+    values = np.zeros(n, dtype=np.uint64)
+    known = np.zeros(n, dtype=bool)
+    roots = plan.roots
+
+    for t, v in pw.values.items():
+        r = roots[t]
+        if known[r] and values[r] != np.uint64(v):
+            raise WitnessConflict(t)
+        values[r] = np.uint64(v)
+        known[r] = True
+
+    native_plan = _native_plan_for(plan)
+    if native_plan is not None:
+        from ..native import run_witness_plan
+
+        result = run_witness_plan(values, known, native_plan)
+        if result is not None:
+            code, err = result
+            if code == 0:
+                return values, known
+            if code == 1:
+                raise ValueError(f"witness targets not set: [{err[0]}]")
+            if code == 2:
+                raise WitnessConflict(int(err[0]))
+            if code == 3:
+                raise ValueError(
+                    f"value {int(np.uint64(err[1]))} does not fit in "
+                    f"{int(err[2])} bits (range check failed at witness time)"
+                )
+            raise RuntimeError(f"native witness plan failed: code {code}")
+
+    def read(ts) -> np.ndarray:
+        idx = roots[np.asarray(ts, dtype=np.int64)]
+        if not known[idx].all():
+            missing = np.asarray(ts)[~known[idx]][:5]
+            raise ValueError(f"witness targets not set: {missing}")
+        return values[idx]
+
+    def write(ts, vals) -> None:
+        idx = roots[np.asarray(ts, dtype=np.int64)]
+        vals = np.asarray(vals, dtype=np.uint64)
+        clash = known[idx] & (values[idx] != vals)
+        if clash.any():
+            raise WitnessConflict(np.asarray(ts)[clash][0])
+        values[idx] = vals
+        known[idx] = True
+
+    for kind, items in plan.batches:
+        if kind == "const":
+            ts = [t for t, _ in items]
+            vs = [v for _, v in items]
+            write(ts, np.array(vs, dtype=np.uint64))
+        elif kind == "arith":
+            c0 = np.array([i[0] for i in items], dtype=np.uint64)
+            c1 = np.array([i[1] for i in items], dtype=np.uint64)
+            m0 = read([i[2] for i in items])
+            m1 = read([i[3] for i in items])
+            a = read([i[4] for i in items])
+            out = gl.add(gl.mul(c0, gl.mul(m0, m1)), gl.mul(c1, a))
+            write([i[5] for i in items], out)
+        elif kind == "inv_or_zero":
+            x = read([i[0] for i in items])
+            out = np.zeros_like(x)
+            nz = x != 0
+            if nz.any():
+                out[nz] = gl.batch_inverse(x[nz])
+            write([i[1] for i in items], out)
+        elif kind == "bits":
+            v = read([i[0] for i in items])
+            nbits = len(items[0][1])
+            if nbits < 64:
+                too_big = v >> np.uint64(nbits)
+                if too_big.any():
+                    bad = np.where(too_big)[0][0]
+                    raise ValueError(
+                        f"value {int(v[bad])} does not fit in {nbits} bits "
+                        "(range check failed at witness time)"
+                    )
+            bits = (v[:, None] >> np.arange(nbits, dtype=np.uint64)) & np.uint64(1)
+            all_ts = [t for _, bit_ts in items for t in bit_ts]
+            write(all_ts, bits.ravel())
+        elif kind == "poseidon":
+            ins = read([t for i in items for t in i[0]]).reshape(-1, 12)
+            swaps = read([i[1] for i in items])
+            wire_vals, outs = poseidon_trace(ins, swaps)
+            # internal wires: same layout for every row in the batch
+            internal_ts = [t for i in items for _, t in i[2]]
+            internal_wires = [w for w, _ in items[0][2]]
+            per_row = np.stack(
+                [wire_vals[w] for w in internal_wires], axis=1
+            )  # (B, n_internal)
+            write(internal_ts, per_row.ravel())
+            write([t for i in items for t in i[3]], outs.ravel())
+    return values, known

@@ -1,0 +1,105 @@
+"""The port must run where there is no JAX: no module of qzk_tpu_torch,
+and not chip_smoke.py, may import jax, qzk_tpu or the tests.  Its entry
+points run on CUDA unless the caller passes device="cpu", and raise
+when there is no card rather than dropping to the CPU."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import qzk_tpu_torch
+from qzk_tpu_torch.ops import goldilocks_torch as gt
+from qzk_tpu_torch.ops import poseidon_cuda as pc
+from qzk_tpu_torch.utils.device import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(qzk_tpu_torch.__path__, "qzk_tpu_torch.")
+    )
+
+
+def test_package_and_chip_smoke_import_no_jax(tmp_path):
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.path.insert(0, {ROOT!r})
+        for name in {_modules()!r} + ["chip_smoke"]:
+            importlib.import_module(name)
+        bad = sorted(
+            k for k in sys.modules
+            if k.split(".")[0] in ("jax", "jaxlib", "qzk_tpu", "tests", "fixtures")
+        )
+        assert not bad, bad
+        print("ok", len(sys.modules))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_sources_name_no_jax_import():
+    pkg = os.path.dirname(qzk_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                for bad in ("import jax", "from jax", "import qzk_tpu\n", "from qzk_tpu.", "from qzk_tpu import"):
+                    assert bad not in text, (f, bad)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_prove_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
+    from qzk_tpu_torch.plonk.builder import CircuitBuilder
+    from qzk_tpu_torch.plonk.config import CircuitConfig
+    from qzk_tpu_torch.plonk.witness import PartialWitness
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    x = builder.add_virtual_target()
+    builder.register_public_input(builder.mul(x, x))
+    data = builder.build()
+    pw = PartialWitness()
+    pw.set_target(x, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.prove(pw)
+
+
+def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    x = gt.from_u64([[1, 2, 3, 4, 5, 6, 7, 8, 9]])
+    assert pc.hash_no_pad_rows(x).shape == (1, 4)
+    with pytest.raises(ValueError):
+        pc.hash_no_pad_rows(x.to("meta"))
+
+
+def test_cuda_build_needs_nvcc():
+    """Without nvcc the kernels' build raises; nothing falls back."""
+    if shutil.which("nvcc") is None and not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            pc.library_path()
+    else:
+        assert os.path.exists(pc.library_path())
