@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Phases, in order:
-  build    build the native (g++) and CUDA (nvcc) libraries;
+  build    build the native (g++) and CUDA (nvcc) libraries, all at once;
   circuit  build the Wormhole circuit (non-zk standard recursion config);
-  kernels  hold each CUDA kernel against its plain torch version, bit
-           for bit, at the circuit's main-path shapes and on edge inputs;
+  kernels  hold each CUDA kernel (K1, K2: Poseidon; K3: NTT) against its
+           plain torch version, bit for bit, at the circuit's main-path
+           shapes, at the 2^22 NTT's pass shapes and on edge inputs;
+  ntt      the kernels benchmark's 2^22 forward NTT through K3, checked
+           against the plain four-step NTT and the host oracle;
   prove    prove it from the synthetic inputs through the staged device
            pipeline, time each phase with CUDA events after a warm-up
            prove, count kernel launches, and check the proof's sha256;
@@ -27,6 +30,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -34,25 +38,23 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from qzk_tpu_torch.benches.kernels import (  # noqa: E402
+    INT_MULS_PER_PERM,
+    bound_ms,
+    ntt_axis0_work,
+)
 from qzk_tpu_torch.ops import goldilocks as gl  # noqa: E402
 from qzk_tpu_torch.ops import goldilocks_torch as gt  # noqa: E402
+from qzk_tpu_torch.ops import ntt as ntt_mod  # noqa: E402
+from qzk_tpu_torch.ops import ntt_cuda as nc  # noqa: E402
+from qzk_tpu_torch.ops import ntt_fourstep as nfs  # noqa: E402
+from qzk_tpu_torch.ops import ntt_torch as ntp  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_cuda as pc  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_torch as pt  # noqa: E402
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
-# bytes/s, and the float32 rate outside the tensor cores, here applied
-# to 32-bit integer multiplies (the SM issues those at half that rate,
-# so the bound is a lower bound).
-PEAK_BYTES = 3.35e12
-PEAK_SCALAR_OPS = 67e12
-
-# 32-bit integer multiplies of one Poseidon permutation: a 64x64-bit
-# product is four 32x32 partial products, and its reduction one more;
-# 8 full rounds of 12 S-boxes and 22 partial rounds of 1 S-box, at 4
-# products an S-box; 30 MDS layers of 144 small products on each of the
-# two 32-bit halves, plus one reduction per lane.
-MULMODS_PER_PERM = 4 * (8 * 12 + 22)
-INT_MULS_PER_PERM = 5 * MULMODS_PER_PERM + 30 * (144 * 2 + 12)
+# The kernels benchmark's NTT size: its 2^22 transform runs as two K3
+# passes over (2048, 2048).
+BENCH_LOG_N = 22
 
 
 def log(msg: str) -> None:
@@ -120,20 +122,25 @@ def require_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
 def phase_build(state) -> None:
     from qzk_tpu_torch import native
 
-    with Phase("build"):
+    def timed(fn):
         t0 = time.perf_counter()
-        native.get_lib()
-        t_native = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        so = pc.library_path()
-        t_cuda = time.perf_counter() - t0
-    if native.get_lib() is None:
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    builds = {"native": native.get_lib, "poseidon": pc.library_path, "ntt": nc.library_path}
+    with Phase("build"), ThreadPoolExecutor(len(builds)) as pool:
+        done = {k: pool.submit(timed, fn) for k, fn in builds.items()}
+        done = {k: f.result() for k, f in done.items()}
+    if done["native"][0] is None:
         raise RuntimeError("native host library did not build")
-    log(f"build: native {t_native:.2f} s, cuda {t_cuda:.2f} s ({os.path.basename(so)})")
-    with open(so + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    log("build (in parallel): " + ", ".join(f"{k} {t:.2f} s" for k, (_, t) in done.items()))
+    for key in ("poseidon", "ntt"):
+        so = done[key][0]
+        log(f"  {os.path.basename(so)}")
+        with open(so + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("  ptxas: " + line.strip())
 
 
 def kernel_widths(state) -> list[int]:
@@ -148,12 +155,41 @@ def kernel_widths(state) -> list[int]:
     return sorted(widths)
 
 
+def canonical_rows(rng, shape, dev) -> torch.Tensor:
+    """Random canonical values with 0, 1 and p-1 planted."""
+    x = rng.integers(0, gl.P, size=shape, dtype=np.uint64)
+    x.reshape(-1)[:3] = [0, 1, gl.P - 1]
+    x.reshape(-1)[-3:] = [gl.P - 1, 1, 0]
+    return gt.from_u64(x, dev)
+
+
+def ntt_shapes(state) -> list[tuple[int, int]]:
+    """(log_n, batch) of every four-step NTT on the main path: the
+    wires and zs iNTT at 2^degree_bits, the quotient iNTT at 2^lde_bits,
+    and the LDE of the wires, zs, quotient and preprocessed rows."""
+    common = state["common"]
+    cfg = common.config
+    pre_w = len(common.gates) + cfg.num_constants + cfg.num_routed_wires
+    zs = common.num_zs_partial_products_polys
+    shapes = {(common.degree_bits, cfg.num_wires), (common.degree_bits, zs),
+              (common.lde_bits, cfg.num_challenges)}
+    for b in (cfg.num_wires, zs, common.num_quotient_polys, pre_w):
+        shapes.add((common.lde_bits, b))
+    return sorted(shapes)
+
+
+def check_k3(name: str, x: torch.Tensor, stw: torch.Tensor, tw) -> int:
+    got = nc.ntt_axis0(x, stw, tw)
+    torch.cuda.synchronize()
+    return require_equal(name, got, ntp.ntt_axis0(x, stw, tw))
+
+
 def phase_kernels(state) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261017)
     lde = state["common"].lde_size
     results = []
-    err = {"hash_rows": 0, "permute": 0}
+    err = {"hash_rows": 0, "permute": 0, "ntt_axis0": 0}
     with Phase("kernels"):
         for w in kernel_widths(state):
             for n in (lde, 1037):
@@ -172,8 +208,53 @@ def phase_kernels(state) -> None:
             torch.cuda.synchronize()
             err["permute"] = max(err["permute"], require_equal(f"K2 b={b}", got, pt.permute(s)))
             results.append(f"K2 b={b}")
+        # K3: both passes of every main-path four-step transform, and of
+        # the 2^22 one, as the plan launches them (the second reads the
+        # transpose of the first's output in place)
+        for log_n, b in ntt_shapes(state) + [(BENCH_LOG_N, 1)]:
+            plan = nfs.get_fourstep_cuda_plan(log_n)
+            for inverse in (False, True):
+                tw2, twiddle, tw1 = plan.tables(dev, inverse)
+                x = canonical_rows(rng, (b, plan.n2, plan.n1), dev)
+                a = nc.ntt_axis0(x, tw2, twiddle)
+                err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
+                    f"K3 2^{log_n} b={b} pass 1", x, tw2, twiddle))
+                err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
+                    f"K3 2^{log_n} b={b} pass 2", a.transpose(1, 2), tw1, None))
+            results.append(f"K3 2^{log_n} b={b} (both passes, both directions)")
+        # ragged column tiles, with and without the twiddle block, and
+        # non-canonical 64-bit inputs
+        for b, log_n, m in ((3, 8, 1000), (1, 11, 1037)):
+            stw = gt.from_u64(ntp.stage_tw_table(log_n), dev)
+            tw = canonical_rows(rng, (1 << log_n, m), dev)
+            x = edge_rows(rng, b * (1 << log_n), m, dev).reshape(b, 1 << log_n, m)
+            for t in (tw, None):
+                err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
+                    f"K3 ragged ({b}, {1 << log_n}, {m}) mul_tw={t is not None}", x, stw, t))
+            results.append(f"K3 ragged ({b}, {1 << log_n}, {m})")
     state["max_abs_err"] = err
     log(f"kernels: bit-exact against the plain torch versions: {', '.join(results)}")
+
+
+def phase_ntt(state) -> None:
+    """The kernels benchmark's 2^22 forward NTT through K3 against the
+    plain four-step NTT on the card and the host oracle (native C++)."""
+    dev = torch.device("cuda")
+    n = 1 << BENCH_LOG_N
+    x = np.random.default_rng(22).integers(0, gl.P, size=(1, n), dtype=np.uint64)
+    x[0, :3] = [0, 1, gl.P - 1]
+    coeffs = gt.from_u64(x, dev)
+    plan = nfs.get_fourstep_cuda_plan(BENCH_LOG_N)
+    with Phase("ntt"):
+        got = plan.ntt(coeffs)
+        torch.cuda.synchronize()
+        require_equal("2^22 NTT, K3 vs plain four-step", got,
+                      ntt_mod.get_fourstep_plan(BENCH_LOG_N).ntt(coeffs))
+        require_equal("2^22 NTT, K3 vs ntt_np", got, gt.from_u64(ntt_mod.ntt_np(x), dev))
+        require_equal("2^22 iNTT, K3", plan.intt(got), coeffs)
+        ms = cuda_ms(lambda: plan.ntt(coeffs))
+    log(f"ntt: 2^22 forward NTT through K3 equals the plain four-step NTT and ntt_np; "
+        f"its inverse gives the input back; {ms:.4f} ms")
 
 
 def time_kernels(state) -> list[dict]:
@@ -194,16 +275,20 @@ def time_kernels(state) -> list[dict]:
     k2_plain = cuda_ms(lambda: pt.permute(states), iters=2, warmup=1)
     k2_bytes = 2 * states.numel() * 8
     k2_ops = b * INT_MULS_PER_PERM
+    plan = nfs.get_fourstep_cuda_plan(BENCH_LOG_N)
+    tw2, twiddle, _ = plan.tables(dev, False)
+    x = canonical_rows(rng, (1, plan.n2, plan.n1), dev)
+    k3_ms = cuda_ms(lambda: nc.ntt_axis0(x, tw2, twiddle))
+    k3_plain = cuda_ms(lambda: ntp.ntt_axis0(x, tw2, twiddle), iters=2, warmup=1)
+    k3_bytes, k3_ops = ntt_axis0_work(1, plan.log2, plan.n1, True)
     launches = state["launches"]
 
     def rec(name, src, replaces, key, ms, plain, nbytes, ops, shape):
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_SCALAR_OPS * 1e3
+        bound, by = bound_ms(nbytes, ops)
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[key], "max_abs_err": state["max_abs_err"][key],
-            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "shape": shape,
         }
 
@@ -214,6 +299,9 @@ def time_kernels(state) -> list[dict]:
         rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
             "qzk_tpu/ops/poseidon_pallas.py:275", "permute", k2_ms, k2_plain,
             k2_bytes, k2_ops, [b, 12]),
+        rec("K3 ntt_axis0", "qzk_tpu_torch/ops/csrc/ntt.cu",
+            "qzk_tpu/ops/ntt_pallas.py:119", "ntt_axis0", k3_ms, k3_plain,
+            k3_bytes, k3_ops, [1, plan.n2, plan.n1]),
     ]
 
 
@@ -249,14 +337,15 @@ def phase_prove(state) -> None:
         prove()
     timer = PhaseTimer(cuda_events=True)
     pc.reset_launches()
+    nc.reset_launches()
     with Phase("prove (warm)") as ph:
         proof = prove(timer)
-    state["launches"] = dict(pc.LAUNCHES)
+    state["launches"] = {**pc.LAUNCHES, **nc.LAUNCHES}
     for name, ms in timer.results():
         log(f"  prove phase {name}: {ms / 1e3:.4f} s")
     log(f"prove: {ph.seconds:.3f} s; launches K1 {state['launches']['hash_rows']}, "
-        f"K2 {state['launches']['permute']}")
-    for key in ("hash_rows", "permute"):
+        f"K2 {state['launches']['permute']}, K3 {state['launches']['ntt_axis0']}")
+    for key in ("hash_rows", "permute", "ntt_axis0"):
         if state["launches"][key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the main path")
     digest = hashlib.sha256(proof.to_bytes()).hexdigest()
@@ -310,7 +399,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     state: dict = {}
     t0 = time.perf_counter()
-    for phase in (phase_build, phase_circuit, phase_kernels, phase_prove,
+    for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
                   phase_verify, phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")

@@ -1,5 +1,5 @@
 """Number-theoretic transform (radix-2) over Goldilocks + low-degree
-extension — numpy oracle and JAX device implementation.
+extension — numpy oracle and torch plans.
 
 The Goldilocks field has 2-adicity 32: p - 1 = 2^32 * (2^32 - 1), so the
 multiplicative group contains a 2^32 subgroup generated by
@@ -15,10 +15,10 @@ Conventions:
   * intt: inverse.
   * coset_lde: P -> evaluations of P on shift * <w_{n<<rate_bits}>.
 
-The torch path (pease_tables, ntt_pease, intt_pease, coset_lde_pease)
-runs the constant-geometry transform of the JAX package's ntt.py as
-batched-row tensor ops on int64 bit patterns; it is bit-exact against
-the numpy oracle and against the JAX package (tests/test_torch_ntt.py).
+The torch plans (NTTPlan, FourStepPlan) mirror the JAX package's and
+are bit-exact against it and against the numpy oracle
+(tests/test_torch_ntt_fourstep.py).  The prover's batched-row iNTT and
+coset LDE run through the CUDA kernel K3 in ops/ntt_fourstep.py.
 """
 
 from __future__ import annotations
@@ -164,71 +164,153 @@ def coset_lde_np(
 
 
 # ---------------------------------------------------------------------------
-# Constant-geometry (Pease) NTT, for the device prover
+# Radix-2 plan (torch), the benchmark's "radix2" variant
 # ---------------------------------------------------------------------------
-#
-# Every stage has IDENTICAL data flow:
-#     a, b = x[: n/2], x[n/2 :]
-#     e = a + b;  o = (a - b) * tw_s        (radix-2 DIF butterfly)
-#     x' = interleave(e, o)                 (perfect shuffle — a
-#                                            reshape/stack, no gather)
-# with per-stage twiddles tw_s[k] = w_{2^(m-s)}^(k >> s), natural-order
-# input, bit-reversed output (one final gather).  Validated bit-exact
-# against ntt_np (tests/test_torch_ntt.py).
-#
-# It is the transform the JAX package's device prover runs; the port
-# keeps it so that both stacks take the same steps.  The tables are host
-# numpy, uploaded once per circuit by the device prover.
+
+
+class NTTPlan:
+    """Bit-reversal permutation and per-stage twiddles for size 2^log_n.
+
+    The tables are host numpy, uploaded to a device at first use there;
+    `ntt`/`intt` transform the last axis of an int64 tensor, one torch
+    butterfly layer per stage."""
+
+    def __init__(self, log_n: int):
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.rev = bit_reverse_perm(log_n)
+        self.stage_tw = [
+            powers(root_of_unity(s), 1 << (s - 1))
+            for s in range(1, log_n + 1)
+        ]
+        self.n_inv = pow(self.n, gl.P - 2, gl.P)
+        self._rev_idx = np.concatenate([[0], np.arange(self.n - 1, 0, -1)])
+        self._dev: dict = {}
+
+    def _tables(self, device: torch.device):
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (
+                torch.as_tensor(self.rev, device=device),
+                [gt.from_u64(t, device) for t in self.stage_tw],
+                torch.as_tensor(self._rev_idx, device=device),
+            )
+        return self._dev[key]
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.n
+        rev, stage_tw, _ = self._tables(x.device)
+        x = x.index_select(-1, rev)
+        for s in range(1, self.log_n + 1):
+            half = 1 << (s - 1)
+            xr = x.reshape(*x.shape[:-1], n >> s, 2, half)
+            e = xr[..., 0, :]
+            o = gt.mul(xr[..., 1, :], stage_tw[s - 1])
+            x = torch.stack([gt.add(e, o), gt.sub(e, o)], dim=-2).reshape(
+                *x.shape[:-1], n
+            )
+        return x
+
+    def intt(self, evals: torch.Tensor) -> torch.Tensor:
+        y = self.ntt(evals).index_select(-1, self._tables(evals.device)[2])
+        return gt.mul(y, gt.scalar(self.n_inv, y.device))
 
 
 @functools.lru_cache(maxsize=None)
-def pease_tables(log_n: int) -> dict:
-    """{"tw": (m, n/2), "twinv": (m, n/2), "rev": (n,) int32} host
-    tables for ntt_pease/intt_pease at size 2^log_n."""
-    n = 1 << log_n
-    tw = np.empty((log_n, n // 2), dtype=np.uint64)
-    twinv = np.empty((log_n, n // 2), dtype=np.uint64)
-    k = np.arange(n // 2)
-    for s in range(log_n):
-        ws = root_of_unity(log_n - s)
-        size_half = max(1, n >> (s + 1))
-        tw[s] = powers(ws, size_half)[k >> s]
-        twinv[s] = powers(pow(ws, gl.P - 2, gl.P), size_half)[k >> s]
-    return {
-        "tw": tw,
-        "twinv": twinv,
-        "rev": bit_reverse_perm(log_n).astype(np.int32),
-    }
+def get_plan(log_n: int) -> NTTPlan:
+    return NTTPlan(log_n)
 
 
-def ntt_pease(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Forward NTT along the last axis, natural order at both ends:
-    one radix-2 DIF stage per row of `tw` (from pease_tables, as an
-    int64 tensor on x's device), then the output bit-reversal."""
-    n = x.shape[-1]
-    lead = x.shape[:-1]
-    for s in range(tw.shape[0]):
-        a, b = x[..., : n // 2], x[..., n // 2 :]
-        e = gt.add(a, b)
-        o = gt.mul(gt.sub(a, b), tw[s])
-        x = torch.stack([e, o], dim=-1).reshape(*lead, n)
-    rev = torch.as_tensor(bit_reverse_perm(n.bit_length() - 1), device=x.device)
-    return x.index_select(-1, rev)
+# ---------------------------------------------------------------------------
+# Four-step NTT: tables, and the plain torch transform
+# ---------------------------------------------------------------------------
+#
+#   x[j1 + n1*j2]  viewed as  xr[j2, j1]      (n2, n1) C-order
+#   1. length-n2 NTTs along axis 0 (root w^n1)  -> A[k2, j1]
+#   2. A *= T,  T[k2, j1] = w^(j1*k2)           (elementwise)
+#   3. transpose -> (n1, n2), length-n1 NTTs along axis 0 (root w^n2)
+#   4. result B[k1, k2] IS the natural-order output reshaped (n,)
+#
+# ops/ntt_fourstep.py runs the same steps through the CUDA kernel K3
+# (csrc/ntt.cu), which does each axis-0 pass in one launch.
 
 
-def intt_pease(x: torch.Tensor, twinv: torch.Tensor, log_n: int = 0) -> torch.Tensor:
-    """Inverse NTT along the last axis: (1/n) * NTT_{w^-1}(x)."""
-    if not log_n:
-        log_n = x.shape[-1].bit_length() - 1
-    y = ntt_pease(x, twinv)
-    return gt.mul(y, gt.scalar(pow(1 << log_n, gl.P - 2, gl.P), y.device))
+def powers_mul_table(base: int, n: int) -> np.ndarray:
+    """powers(base, n) built by vectorized doubling (O(log n) numpy
+    passes; the scalar loop of _powers_table is too slow at n ~ 2^22)."""
+    out = np.ones(1, dtype=np.uint64)
+    b = np.uint64(base % gl.P)
+    while out.shape[0] < n:
+        out = np.concatenate([out, gl.mul(out, b)])
+        b = gl.mul(b, b)
+    return out[:n]
 
 
-def coset_lde_pease(
-    coeffs: torch.Tensor, rate_bits: int, shift_pows: torch.Tensor, tw_lde: torch.Tensor
-) -> torch.Tensor:
-    """coeffs (..., n) -> evaluations on the shifted coset of size
-    n << rate_bits (shift_pows: (n,) powers of the coset shift)."""
-    n = coeffs.shape[-1]
-    shifted = gt.mul(coeffs, shift_pows)
-    return ntt_pease(torch.nn.functional.pad(shifted, (0, (n << rate_bits) - n)), tw_lde)
+class FourStepPlan:
+    """Host tables for the four-step NTT at size 2^log_n: the (n2, n1)
+    twiddle matrix w^(j1*k2), the two bit-reversal permutations and the
+    two passes' per-stage twiddles."""
+
+    def __init__(self, log_n: int):
+        self.log_n = log_n
+        self.log1 = log_n // 2
+        self.log2 = log_n - self.log1
+        n1, n2 = 1 << self.log1, 1 << self.log2
+        self.n1, self.n2 = n1, n2
+        w = root_of_unity(log_n)
+        pw = powers_mul_table(w, 1 << log_n)
+        exps = (
+            np.arange(n2, dtype=np.int64)[:, None]
+            * np.arange(n1, dtype=np.int64)[None, :]
+        ) & ((1 << log_n) - 1)
+        self.twiddle = pw[exps]  # (n2, n1) w^(j1*k2)
+        self.rev1 = bit_reverse_perm(self.log1)
+        self.rev2 = bit_reverse_perm(self.log2)
+        self.stage_tw1 = [
+            powers(root_of_unity(s), 1 << (s - 1))
+            for s in range(1, self.log1 + 1)
+        ]
+        self.stage_tw2 = [
+            powers(root_of_unity(s), 1 << (s - 1))
+            for s in range(1, self.log2 + 1)
+        ]
+        self._dev: dict = {}
+
+    def _tables(self, device: torch.device):
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (
+                gt.from_u64(self.twiddle, device),
+                torch.as_tensor(self.rev1, device=device),
+                torch.as_tensor(self.rev2, device=device),
+                [gt.from_u64(t, device)[None, :, None] for t in self.stage_tw1],
+                [gt.from_u64(t, device)[None, :, None] for t in self.stage_tw2],
+            )
+        return self._dev[key]
+
+    @staticmethod
+    def _ntt_axis0(x, rev, stage_tw):
+        """Radix-2 DIT along axis 0, the columns untouched."""
+        n = x.shape[0]
+        x = x.index_select(0, rev)
+        for s in range(1, n.bit_length()):
+            half = 1 << (s - 1)
+            xr = x.reshape(n >> s, 2, half, -1)
+            e = xr[:, 0]
+            o = gt.mul(xr[:, 1], stage_tw[s - 1])
+            x = torch.stack([gt.add(e, o), gt.sub(e, o)], dim=1).reshape(n, -1)
+        return x
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        """Forward NTT of a (n,) or (1, n) vector, in torch ops."""
+        twiddle, rev1, rev2, tw1, tw2 = self._tables(x.device)
+        lead = x.shape[:-1]
+        a = self._ntt_axis0(x.reshape(self.n2, self.n1), rev2, tw2)
+        a = gt.mul(a, twiddle)
+        b = self._ntt_axis0(a.T, rev1, tw1)
+        return b.reshape(*lead, 1 << self.log_n)
+
+
+@functools.lru_cache(maxsize=None)
+def get_fourstep_plan(log_n: int) -> FourStepPlan:
+    return FourStepPlan(log_n)

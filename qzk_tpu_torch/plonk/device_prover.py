@@ -18,8 +18,10 @@ The host keeps the Fiat-Shamir challenger (ops/transcript.py) and
 downloads only caps, openings, the FRI final polynomial and the query
 rounds' leaves and paths.  Merkle hashing runs on the CUDA row sponge
 (K1) and the PoW grind on the CUDA permutation (K2), through
-ops/poseidon_cuda.py; the rest is torch tensor code on int64 bit
-patterns (ops/goldilocks_torch.py).
+ops/poseidon_cuda.py; every iNTT and coset LDE is the four-step
+transform on the CUDA NTT kernel (K3), through ops/ntt_fourstep.py; the
+rest is torch tensor code on int64 bit patterns
+(ops/goldilocks_torch.py).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..ops import goldilocks as gl
 from ..ops import goldilocks_torch as gt
 from ..ops import merkle as mk
 from ..ops import ntt as ntt_mod
+from ..ops import ntt_fourstep as nfs
 from ..ops import poseidon_cuda as pc
 from ..ops.transcript import Challenger
 from . import fri as fri_mod
@@ -117,18 +120,13 @@ class DeviceProverContext:
         )
         self.k_is = up(common.k_is)
         g_pows = up(ntt_mod.powers(common.subgroup_generator(), N))
-        # constant-geometry NTT tables
-        ptab_n = ntt_mod.pease_tables(common.degree_bits)
-        ptab_m = ntt_mod.pease_tables(common.lde_bits)
-        self.twinv_n = up(ptab_n["twinv"])
-        self.tw_m = up(ptab_m["tw"])
-        self.twinv_m = up(ptab_m["twinv"])
+        # four-step NTT plans (K3)
+        self.ntt_n = nfs.get_fourstep_cuda_plan(common.degree_bits)
+        self.ntt_m = nfs.get_fourstep_cuda_plan(common.lde_bits)
         self.shift_n = up(ntt_mod.powers(gl.GENERATOR, N))
 
         # --- one-time derivation of the big per-circuit arrays ----------
-        self.pre_lde = ntt_mod.coset_lde_pease(
-            self.pre_coeffs, rate_bits, self.shift_n, self.tw_m
-        )
+        self.pre_lde = nfs.coset_lde(self.pre_coeffs, rate_bits, self.shift_n)
         self.pre_tree = self._commit_leaves(self.pre_lde.T)
         if not (self.pre_tree.cap == prover_only.preprocessed_tree.cap).all():
             raise RuntimeError("device-derived preprocessed cap != host cap")
@@ -167,10 +165,8 @@ class DeviceProverContext:
     def commit(self, values: torch.Tensor):
         """(S, N) subgroup values -> coeffs, (S, 8N) coset LDE, tree."""
         common = self.common
-        coeffs = ntt_mod.intt_pease(values, self.twinv_n, log_n=common.degree_bits)
-        lde = ntt_mod.coset_lde_pease(
-            coeffs, common.config.fri_config.rate_bits, self.shift_n, self.tw_m
-        )
+        coeffs = self.ntt_n.intt(values)
+        lde = nfs.coset_lde(coeffs, common.config.fri_config.rate_bits, self.shift_n)
         return coeffs, lde, self._commit_leaves(lde.T)
 
     def zs_stage(self, w_routed, betas, gammas):
@@ -234,21 +230,11 @@ class DeviceProverContext:
             self.l1, self.k_is,
         )
         deg_cap = cfg.max_quotient_degree_factor * N
-        q_rows = []
-        tail_ok = True
-        for c in range(cfg.num_challenges):
-            qv = gt.mul(vanishing[c], self.z_h_inv_full)
-            q_coeffs = gt.mul(
-                ntt_mod.intt_pease(qv, self.twinv_m, log_n=common.lde_bits),
-                self.shift_inv_pows,
-            )
-            tail_ok = tail_ok and bool((q_coeffs[deg_cap - N :] == 0).all())
-            for t in range(cfg.max_quotient_degree_factor):
-                q_rows.append(q_coeffs[t * N : (t + 1) * N])
-        quotient_coeffs = torch.stack(q_rows)
-        quotient_lde = ntt_mod.coset_lde_pease(
-            quotient_coeffs, cfg.fri_config.rate_bits, self.shift_n, self.tw_m
-        )
+        qv = gt.mul(torch.stack(vanishing), self.z_h_inv_full)
+        q_coeffs = gt.mul(self.ntt_m.intt(qv), self.shift_inv_pows)
+        tail_ok = bool((q_coeffs[:, deg_cap - N :] == 0).all())
+        quotient_coeffs = q_coeffs[:, :deg_cap].reshape(-1, N)
+        quotient_lde = nfs.coset_lde(quotient_coeffs, cfg.fri_config.rate_bits, self.shift_n)
         return quotient_coeffs, quotient_lde, tail_ok
 
     def openings_stage(self, wires_coeffs, zs_coeffs, quotient_coeffs, zeta, zeta_right):

@@ -15,6 +15,8 @@ import torch
 
 import qzk_tpu_torch
 from qzk_tpu_torch.ops import goldilocks_torch as gt
+from qzk_tpu_torch.ops import ntt_cuda as nc
+from qzk_tpu_torch.ops import ntt_torch as ntp
 from qzk_tpu_torch.ops import poseidon_cuda as pc
 from qzk_tpu_torch.utils.device import resolve_device
 
@@ -103,3 +105,29 @@ def test_cuda_build_needs_nvcc():
             pc.library_path()
     else:
         assert os.path.exists(pc.library_path())
+
+
+def test_ntt_wrapper_takes_the_plain_version_only_for_cpu_tensors():
+    x = gt.from_u64([[1, 2], [3, 4], [5, 6], [7, 8]])
+    stw = gt.from_u64(ntp.stage_tw_table(2))
+    assert torch.equal(nc.ntt_axis0(x, stw), ntp.ntt_axis0(x, stw))
+    assert nc.LAUNCHES["ntt_axis0"] == 0
+    with pytest.raises(ValueError):
+        nc.ntt_axis0(x.to("meta"), stw.to("meta"))
+    with pytest.raises(ValueError, match="power of two"):
+        nc.ntt_axis0(x[:3], stw)
+    with pytest.raises(ValueError, match="stage_tw"):
+        nc.ntt_axis0(x, stw[:1])
+    with pytest.raises(ValueError, match="twiddle"):
+        nc.ntt_axis0(x, stw, x[:, :1].contiguous())
+    with pytest.raises(TypeError):
+        nc.ntt_axis0(x.to(torch.int32), stw)
+
+
+def test_ntt_kernel_build_needs_nvcc():
+    """Without nvcc the NTT kernel's build raises; nothing falls back."""
+    if shutil.which("nvcc") is None and not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            nc.library_path()
+    else:
+        assert os.path.exists(nc.library_path())
