@@ -16,10 +16,9 @@ output bit for bit, and a kernel that fails ends the run.  With
 ``--device cpu`` the plain torch variants run on the CPU and the
 ``_cuda`` lines are left out (the kernels exist only on the card).
 
-Roofline of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
-bytes at PEAK_BYTES, and 32-bit integer multiplies at PEAK_SCALAR_OPS,
-the float32 rate outside the tensor cores (the SM issues integer
-multiplies at half that rate, so the bound is a lower bound).
+Roofline of one H100 SXM at 700 W: device-memory bytes at PEAK_BYTES
+(NVIDIA's data sheet), and 32-bit integer multiplies at the card's
+throughput for them, peak_int_muls().
 """
 
 from __future__ import annotations
@@ -34,7 +33,14 @@ import numpy as np
 import torch
 
 PEAK_BYTES = 3.35e12
-PEAK_SCALAR_OPS = 67e12
+
+# 32-bit integer multiplies and multiply-adds run at 64 a clock on each SM
+# of compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput).  Without a card, the H100 SXM's 132 SMs at its
+# 1.98 GHz boost clock (NVIDIA's data sheet) stand in.
+INT_MULS_PER_CLOCK_PER_SM = 64
+H100_SMS = 132
+H100_CLOCK_HZ = 1.98e9
 
 # 32-bit integer multiplies: a 64x64-bit product is four 32x32 partial
 # products, and its reduction one more.  One Poseidon permutation: 8
@@ -46,10 +52,22 @@ MULMODS_PER_PERM = 4 * (8 * 12 + 22)
 INT_MULS_PER_PERM = INT_MULS_PER_MULMOD * MULMODS_PER_PERM + 30 * (144 * 2 + 12)
 
 
+def peak_int_muls() -> float:
+    """32-bit integer multiplies a second: 64 a clock on each SM, times
+    the SM count and clock of card 0 from torch.cuda.get_device_properties
+    where it reports them, else those of the H100 SXM."""
+    sms, clock_hz = H100_SMS, H100_CLOCK_HZ
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        sms = props.multi_processor_count or sms
+        clock_hz = getattr(props, "clock_rate", 0) * 1e3 or clock_hz  # kHz
+    return INT_MULS_PER_CLOCK_PER_SM * sms * clock_hz
+
+
 def bound_ms(nbytes: float, int_muls: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = int_muls / PEAK_SCALAR_OPS * 1e3
+    t_ops = int_muls / peak_int_muls() * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -119,7 +137,8 @@ def run(log_n: int, poseidon_batch: int, device: torch.device, emit=print) -> No
     roof_rate = b / (perm_bound / 1e3)
     roof = {"roofline_perm_per_s": roof_rate,
             "roofline_model": "max(2*96 B a state / 3.35e12 B/s, "
-                              f"{INT_MULS_PER_PERM} 32-bit muls a permutation / 67e12 /s)"}
+                              f"{INT_MULS_PER_PERM} 32-bit muls a permutation / "
+                              f"{peak_int_muls():.4g} /s)"}
     if not torch.equal(pc.permute(states), pt.permute(states)):
         raise AssertionError("K2 permutation != its plain torch version")
     variants = [("torch", pt.permute)] + ([("cuda", pc.permute)] if on_card else [])
@@ -143,7 +162,8 @@ def run(log_n: int, poseidon_batch: int, device: torch.device, emit=print) -> No
     k3 = nfs.get_fourstep_cuda_plan(log_n)
     roof = {"roofline_s": ntt_bound / 1e3, "roofline_by": ntt_by,
             "roofline_model": "max(2*8n B / 3.35e12 B/s, "
-                              "n/2*log2(n) modular products * 5 32-bit muls / 67e12 /s)"}
+                              "n/2*log2(n) modular products * 5 32-bit muls / "
+                              f"{peak_int_muls():.4g} /s)"}
     want = fourstep.ntt(coeffs)
     if not torch.equal(radix2.ntt(coeffs), want):
         raise AssertionError("radix-2 NTT != plain four-step NTT")

@@ -9,7 +9,9 @@ stream, or raises; on a CPU tensor it runs the plain torch version in
 ``poseidon_torch.py``.  Inputs are (rows, width) row-major int64 tensors
 holding uint64 bit patterns, as everywhere in the port: the kernels
 stage their reads through shared memory, so no transposed copy is made.
-``LAUNCHES`` counts kernel launches, and nothing else.
+``LAUNCHES`` counts kernel launches, and nothing else; ``K1_SHAPES``
+holds the (n, w) of each K1 launch, so that a run can time K1 at every
+shape a prove gave it.
 """
 
 from __future__ import annotations
@@ -21,16 +23,18 @@ import numpy as np
 import torch
 
 from . import poseidon_torch as pt
-from .poseidon import MDS_MATRIX, _RC
+from .poseidon import _RC
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 LAUNCHES = {"hash_rows": 0, "permute": 0}
+K1_SHAPES: list[tuple[int, int]] = []
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    K1_SHAPES.clear()
 
 
 class _Kernels:
@@ -55,7 +59,7 @@ def _lib(device: torch.device):
     if _Kernels.lib is None:
         lib = ctypes.CDLL(library_path())
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.qzk_poseidon_init.argtypes = [vp, vp]
+        lib.qzk_poseidon_init.argtypes = [vp]
         lib.qzk_hash_rows.argtypes = [vp, vp, ll, ctypes.c_int, vp]
         lib.qzk_permute.argtypes = [vp, vp, ll, vp]
         for f in (lib.qzk_poseidon_init, lib.qzk_hash_rows, lib.qzk_permute):
@@ -64,10 +68,8 @@ def _lib(device: torch.device):
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _Kernels.ready:
         rc = np.ascontiguousarray(_RC, dtype=np.uint64)
-        mds = np.ascontiguousarray(MDS_MATRIX, dtype=np.uint64)
         with torch.cuda.device(idx):
-            _check(_Kernels.lib.qzk_poseidon_init(rc.ctypes.data, mds.ctypes.data),
-                   "qzk_poseidon_init")
+            _check(_Kernels.lib.qzk_poseidon_init(rc.ctypes.data), "qzk_poseidon_init")
         _Kernels.ready.add(idx)
     return _Kernels.lib
 
@@ -103,6 +105,7 @@ def hash_no_pad_rows(rows: torch.Tensor) -> torch.Tensor:
         _check(lib.qzk_hash_rows(rows.data_ptr(), out.data_ptr(), n, w, stream),
                "qzk_hash_rows")
     LAUNCHES["hash_rows"] += 1
+    K1_SHAPES.append((n, w))
     return out
 
 

@@ -37,3 +37,36 @@ def test_kernels_bench_runs_on_cpu(tmp_path):
     assert ntt["kernel"] in ("radix2", "fourstep_torch")
     assert ntt["roofline_by"] == "bytes" and ntt["roofline_s"] == 2 * 8 * 256 / 3.35e12
     assert ntt["efficiency_pct"] is None
+
+
+def test_bound_uses_the_32bit_integer_multiply_rate():
+    # without a card: 64 multiplies a clock on each of the H100 SXM's 132
+    # SMs at 1.98 GHz, and K1's bound at the wires tree's (65536, 135)
+    from qzk_tpu_torch.benches import kernels as kb
+
+    assert kb.peak_int_muls() == 64 * 132 * 1.98e9
+    nbytes = 65536 * 135 * 8 + 65536 * 4 * 8
+    ms, by = kb.bound_ms(nbytes, 65536 * 17 * kb.INT_MULS_PER_PERM)
+    assert by == "operations"
+    assert ms == 65536 * 17 * 11360 / (64 * 132 * 1.98e9) * 1e3
+
+
+def test_sass_reader_counts_kernels_and_loop_bodies():
+    from qzk_tpu_torch.benches import sass
+
+    body = [f"        /*{16 * (i + 2):04x}*/                   IMAD.WIDE.U32 R2, R3, 0x11, R4 ;"
+            for i in range(60)]
+    text = "\n".join([
+        "\t\tFunction : _Z6kernelPm",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0010*/               @P0 IADD3 R5, R5, 0x1, RZ ;",
+        *body,
+        f"        /*{16 * 62:04x}*/               @!P1 BRA 0x20 ;",
+        f"        /*{16 * 63:04x}*/                   EXIT ;",
+    ])
+    kernels = sass.parse(text)
+    assert list(kernels) == ["_Z6kernelPm"]
+    ins = kernels["_Z6kernelPm"]
+    assert len(ins) == 64 and ins[1][1] == "IADD3"
+    assert sass.loops(ins) == [{"start": "0x20", "instructions": 61,
+                                "opcodes": {"IMAD": 60, "BRA": 1}}]
