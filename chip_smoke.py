@@ -14,9 +14,11 @@ Phases, in order:
            pipeline, time each phase with CUDA events after a warm-up
            prove, count kernel launches, and check the proof's sha256;
   verify   verify the proof on the host, and reject a tampered one;
-  report   one JSON line of kernel times and bounds (K1 also at every
-           shape the warm prove launched it with, summed as prove_ms),
-           the card's name and power limit, and the final status line.
+  report   one JSON line of kernel times and bounds (`ms`: CUDA events
+           around 10 calls; K3 also `graph_ms`, over replays of a CUDA
+           graph; K1 and K3 also at every shape the warm prove launched
+           them with, summed as prove_ms, K3's from graph replays), the
+           card's name and power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
 Any failure ends the run with a non-zero exit code and no status line.
@@ -107,6 +109,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of fn() in ms: `iters` calls captured in one CUDA
+    graph and replayed, so that the host's launch rate does not set the
+    time of a short kernel (K3 at the prover's shapes takes 10-30 us)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def edge_rows(rng, n: int, w: int, dev) -> torch.Tensor:
     """Random 64-bit lanes (canonical or not) with 0, 1, p-1, 2^63 and
     2^64-1 planted in every column."""
@@ -152,7 +177,7 @@ def phase_build(state) -> None:
         log(f"  {os.path.basename(so)}")
         with open(so + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Function properties" in line:
                     log("  ptxas: " + line.strip())
 
 
@@ -237,14 +262,20 @@ def phase_kernels(state) -> None:
                     f"K3 2^{log_n} b={b} pass 2", a.transpose(1, 2), tw1, None))
             results.append(f"K3 2^{log_n} b={b} (both passes, both directions)")
         # ragged column tiles, with and without the twiddle block, and
-        # non-canonical 64-bit inputs
-        for b, log_n, m in ((3, 8, 1000), (1, 11, 1037)):
+        # non-canonical 64-bit inputs; 2^13 and 2^14 rows (one column a
+        # thread, the passes of the 2^26 to 2^28 transforms) also
+        # transposed, as the second pass reads them
+        for b, log_n, m in ((3, 8, 1000), (1, 11, 1037), (2, 13, 37), (1, 14, 19)):
             stw = gt.from_u64(ntp.stage_tw_table(log_n), dev)
             tw = canonical_rows(rng, (1 << log_n, m), dev)
             x = edge_rows(rng, b * (1 << log_n), m, dev).reshape(b, 1 << log_n, m)
             for t in (tw, None):
                 err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
                     f"K3 ragged ({b}, {1 << log_n}, {m}) mul_tw={t is not None}", x, stw, t))
+            if log_n > 11:
+                xt = canonical_rows(rng, (b, m, 1 << log_n), dev).transpose(1, 2)
+                err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
+                    f"K3 transposed ({b}, {1 << log_n}, {m})", xt, stw, None))
             results.append(f"K3 ragged ({b}, {1 << log_n}, {m})")
     state["max_abs_err"] = err
     log(f"kernels: bit-exact against the plain torch versions: {', '.join(results)}")
@@ -276,10 +307,31 @@ def time_k1_per_prove(state, rng, dev) -> tuple[float, list]:
     (n, w) it was launched with, timed on edge inputs of that shape,
     times its count.  Returns the sum and [n, w, count, ms] per shape."""
     shapes = []
-    for (n, w), count in sorted(Counter(state["k1_shapes"]).items()):
+    for (n, w), count in sorted(state["k1_shapes"].items()):
         rows = edge_rows(rng, n, w, dev)
         shapes.append([n, w, count, cuda_ms(lambda: pc.hash_no_pad_rows(rows))])
     return sum(count * ms for _, _, count, ms in shapes), shapes
+
+
+def time_k3_per_prove(state, rng, dev) -> tuple[float, list, float]:
+    """K3's time summed over the warm prove's launches, as for K1: each
+    distinct (b, log_n, m, strided, twiddle) it was launched with, timed
+    with graph_ms on canonical inputs of that shape and layout (a strided
+    input is the transpose of a contiguous tensor, as the second
+    four-step pass reads it), times its count.  Returns the sum, [b,
+    log_n, m, strided, twiddle, count, ms, bound_ms] per shape, and the
+    summed bound."""
+    shapes = []
+    for (b, log_n, m, strided, tw), count in sorted(state["k3_shapes"].items()):
+        n = 1 << log_n
+        x = canonical_rows(rng, (b, m, n) if strided else (b, n, m), dev)
+        x = x.transpose(1, 2) if strided else x
+        stw = gt.from_u64(ntp.stage_tw_table(log_n), dev)
+        twiddle = canonical_rows(rng, (n, m), dev) if tw else None
+        ms = graph_ms(lambda: nc.ntt_axis0(x, stw, twiddle))
+        bound, _ = bound_ms(*ntt_axis0_work(b, log_n, m, tw))
+        shapes.append([b, log_n, m, strided, tw, count, ms, bound])
+    return (sum(s[5] * s[6] for s in shapes), shapes, sum(s[5] * s[7] for s in shapes))
 
 
 def time_kernels(state) -> list[dict]:
@@ -305,8 +357,10 @@ def time_kernels(state) -> list[dict]:
     tw2, twiddle, _ = plan.tables(dev, False)
     x = canonical_rows(rng, (1, plan.n2, plan.n1), dev)
     k3_ms = cuda_ms(lambda: nc.ntt_axis0(x, tw2, twiddle))
+    k3_graph_ms = graph_ms(lambda: nc.ntt_axis0(x, tw2, twiddle))
     k3_plain = cuda_ms(lambda: ntp.ntt_axis0(x, tw2, twiddle), iters=2, warmup=1)
     k3_bytes, k3_ops = ntt_axis0_work(1, plan.log2, plan.n1, True)
+    k3_prove_ms, k3_prove_shapes, k3_prove_bound = time_k3_per_prove(state, rng, dev)
     launches = state["launches"]
 
     def rec(name, src, replaces, key, ms, plain, nbytes, ops, shape):
@@ -324,14 +378,20 @@ def time_kernels(state) -> list[dict]:
     k1.update(prove_ms=k1_prove_ms, prove_shapes=k1_prove_shapes)
     log(f"K1 per warm prove: {len(k1_prove_shapes)} shapes, "
         f"{sum(c for _, _, c, _ in k1_prove_shapes)} launches, {k1_prove_ms:.4f} ms")
+    k3 = rec("K3 ntt_axis0", "qzk_tpu_torch/ops/csrc/ntt.cu",
+             "qzk_tpu/ops/ntt_pallas.py:119", "ntt_axis0", k3_ms, k3_plain,
+             k3_bytes, k3_ops, [1, plan.n2, plan.n1])
+    k3.update(graph_ms=k3_graph_ms, prove_ms=k3_prove_ms, prove_shapes=k3_prove_shapes,
+              prove_bound_ms=k3_prove_bound)
+    log(f"K3 per warm prove: {len(k3_prove_shapes)} shapes, "
+        f"{sum(s[5] for s in k3_prove_shapes)} launches, {k3_prove_ms:.4f} ms "
+        f"(bound {k3_prove_bound:.4f} ms)")
     return [
         k1,
         rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
             "qzk_tpu/ops/poseidon_pallas.py:275", "permute", k2_ms, k2_plain,
             k2_bytes, k2_ops, [b, 12]),
-        rec("K3 ntt_axis0", "qzk_tpu_torch/ops/csrc/ntt.cu",
-            "qzk_tpu/ops/ntt_pallas.py:119", "ntt_axis0", k3_ms, k3_plain,
-            k3_bytes, k3_ops, [1, plan.n2, plan.n1]),
+        k3,
     ]
 
 
@@ -371,7 +431,8 @@ def phase_prove(state) -> None:
     with Phase("prove (warm)") as ph:
         proof = prove(timer)
     state["launches"] = {**pc.LAUNCHES, **nc.LAUNCHES}
-    state["k1_shapes"] = list(pc.K1_SHAPES)
+    state["k1_shapes"] = Counter(pc.K1_SHAPES)
+    state["k3_shapes"] = Counter(nc.K3_SHAPES)
     for name, ms in timer.results():
         log(f"  prove phase {name}: {ms / 1e3:.4f} s")
     log(f"prove: {ph.seconds:.3f} s; launches K1 {state['launches']['hash_rows']}, "

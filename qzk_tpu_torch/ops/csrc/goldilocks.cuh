@@ -105,6 +105,48 @@ __device__ __forceinline__ uint64_t mul_weak(uint64_t a, uint64_t b) {
   return reduce_weak(r);
 }
 
+// a + b mod p, weakly, for any 64-bit a and b: each carry out of bit 63
+// is worth 2^64 = eps and adds eps back.  A second carry leaves a low
+// word below eps, so a third cannot happen.
+__device__ __forceinline__ uint64_t add_weak(uint64_t a, uint64_t b) {
+  uint32_t s0, s1, c;
+  asm("{\n\t"
+      "add.cc.u32     %0, %3, %5;\n\t"
+      "addc.cc.u32    %1, %4, %6;\n\t"
+      "addc.u32       %2, 0, 0;\n\t"
+      "neg.s32        %2, %2;\n\t"
+      "add.cc.u32     %0, %0, %2;\n\t"
+      "addc.cc.u32    %1, %1, 0;\n\t"
+      "addc.u32       %2, 0, 0;\n\t"
+      "neg.s32        %2, %2;\n\t"
+      "add.cc.u32     %0, %0, %2;\n\t"
+      "addc.u32       %1, %1, 0;\n\t"
+      "}"
+      : "=&r"(s0), "=&r"(s1), "=&r"(c)
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b), "r"((uint32_t)(b >> 32)));
+  return ((uint64_t)s1 << 32) | s0;
+}
+
+// a - b mod p, weakly, for any 64-bit a and b: each borrow is worth
+// -2^64 = -eps and takes eps away.  A second borrow leaves the word above
+// 2^64 - 2 eps, so a third cannot happen.
+__device__ __forceinline__ uint64_t sub_weak(uint64_t a, uint64_t b) {
+  uint32_t d0, d1, m;
+  asm("{\n\t"
+      "sub.cc.u32     %0, %3, %5;\n\t"
+      "subc.cc.u32    %1, %4, %6;\n\t"
+      "subc.u32       %2, 0, 0;\n\t"
+      "sub.cc.u32     %0, %0, %2;\n\t"
+      "subc.cc.u32    %1, %1, 0;\n\t"
+      "subc.u32       %2, 0, 0;\n\t"
+      "sub.cc.u32     %0, %0, %2;\n\t"
+      "subc.u32       %1, %1, 0;\n\t"
+      "}"
+      : "=&r"(d0), "=&r"(d1), "=&r"(m)
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b), "r"((uint32_t)(b >> 32)));
+  return ((uint64_t)d1 << 32) | d0;
+}
+
 // The torch reduce128 ends with two conditional subtractions of p; after
 // the first the value is below 2^64 - p < p, so the second never changes
 // it, and canonical() is the first.

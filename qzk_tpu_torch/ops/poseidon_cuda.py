@@ -10,12 +10,13 @@ stream, or raises; on a CPU tensor it runs the plain torch version in
 holding uint64 bit patterns, as everywhere in the port: the kernels
 stage their reads through shared memory, so no transposed copy is made.
 ``LAUNCHES`` counts kernel launches, and nothing else; ``K1_SHAPES``
-holds the (n, w) of each K1 launch, so that a run can time K1 at every
+counts K1's launches by (n, w), so that a run can time K1 at every
 shape a prove gave it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -28,7 +29,7 @@ from .poseidon import _RC
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 LAUNCHES = {"hash_rows": 0, "permute": 0}
-K1_SHAPES: list[tuple[int, int]] = []
+K1_SHAPES: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
@@ -105,7 +106,7 @@ def hash_no_pad_rows(rows: torch.Tensor) -> torch.Tensor:
         _check(lib.qzk_hash_rows(rows.data_ptr(), out.data_ptr(), n, w, stream),
                "qzk_hash_rows")
     LAUNCHES["hash_rows"] += 1
-    K1_SHAPES.append((n, w))
+    K1_SHAPES[(n, w)] += 1
     return out
 
 

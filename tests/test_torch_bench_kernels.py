@@ -68,5 +68,42 @@ def test_sass_reader_counts_kernels_and_loop_bodies():
     assert list(kernels) == ["_Z6kernelPm"]
     ins = kernels["_Z6kernelPm"]
     assert len(ins) == 64 and ins[1][1] == "IADD3"
-    assert sass.loops(ins) == [{"start": "0x20", "instructions": 61,
-                                "opcodes": {"IMAD": 60, "BRA": 1}}]
+    assert sass.loops(ins) == [{"start": "0x20", "instructions": 61, "BAR": 0, "LDS": 0,
+                                "STS": 0, "opcodes": {"IMAD": 60, "BRA": 1}}]
+
+
+def test_sass_reader_counts_k3_barriers_and_shared_accesses():
+    # a K3 instantiation (K = 3): a tile loop around a stage-group loop
+    # whose body holds the exchange (STS, BAR, LDS) and 95 butterfly
+    # instructions; a group body is a loop with one barrier
+    from qzk_tpu_torch.benches import sass
+
+    def at(i):
+        return f"/*{16 * i:04x}*/"
+
+    lines = ["\t\tFunction : _ZN12_GLOBAL__N_116ntt_axis0_kernelILi3EEEvNS_4ArgsE",
+             f"        {at(0)}                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;"]
+    group = ([f"        {at(1 + i)}                   STS.128 [R3], R4 ;" for i in range(16)]
+             + [f"        {at(17)}                   BAR.SYNC.DEFER_BLOCKING 0x0 ;"]
+             + [f"        {at(18 + i)}                   LDS.128 R4, [R3] ;" for i in range(16)]
+             + [f"        {at(34 + i)}                   IMAD.WIDE.U32 R6, R4, R5, RZ ;"
+                for i in range(95)]
+             + [f"        {at(129)}               @P0 BRA 0x10 ;"])
+    lines += group + [f"        {at(130)}                   STG.E.128 desc[UR4][R2.64], R4 ;",
+                      f"        {at(131)}                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+                      f"        {at(132)}               @P1 BRA 0x0 ;",
+                      f"        {at(133)}                   EXIT ;"]
+    (line,) = [d for d in (
+        {"kernel": name, "instructions": len(ins), **sass.memory_counts(ins),
+         "loops": sass.loops(ins)} for name, ins in sass.parse("\n".join(lines)).items())]
+    assert (line["instructions"], line["BAR"], line["LDS"], line["STS"]) == (134, 2, 16, 16)
+    assert [(lp["instructions"], lp["BAR"]) for lp in line["loops"]] == [(129, 1), (133, 2)]
+    groups = sass.ntt_group_bodies(line["kernel"], line["loops"])
+    assert groups == [{"log_r": 3, "butterflies": 24, "instructions": 129,
+                       "instructions_per_butterfly": 129 / 24}]
+    # K = 5 holds one column a thread: 5 stages of 16 butterflies
+    one_col = "_ZN12_GLOBAL__N_116ntt_axis0_kernelILi5EEEvNS_4ArgsE"
+    assert sass.ntt_group_bodies(one_col, line["loops"])[0]["butterflies"] == 80
+    # K = 0 (one row) runs no stages
+    assert sass.ntt_group_bodies(one_col.replace("ILi5E", "ILi0E"), line["loops"]) == []
+    assert sass.ntt_group_bodies("_Z6kernelPm", line["loops"]) is None
