@@ -4,20 +4,32 @@
 
 Phases, in order:
   build    build the native (g++) and CUDA (nvcc) libraries, all at once;
-  circuit  build the Wormhole circuit (non-zk standard recursion config);
+  circuit  build the Wormhole circuit under the zk standard recursion
+           config (the main path: the config of bench.py) and the non-zk
+           one, and the voting circuit under both;
   kernels  hold each CUDA kernel (K1, K2: Poseidon; K3: NTT) against its
-           plain torch version, bit for bit, at the circuit's main-path
-           shapes, at the 2^22 NTT's pass shapes and on edge inputs;
+           plain torch version, bit for bit, at every shape the four
+           proves give it (K1 also at the zk salted leaf widths), at the
+           2^22 NTT's pass shapes and on edge inputs;
   ntt      the kernels benchmark's 2^22 forward NTT through K3, checked
            against the plain four-step NTT and the host oracle;
-  prove    prove it from the synthetic inputs through the staged device
-           pipeline, time each phase with CUDA events after a warm-up
-           prove, count kernel launches, and check the proof's sha256;
-  verify   verify the proof on the host, and reject a tampered one;
+  prove    each circuit from its inputs through the staged device
+           pipeline: a first prove, then a warm one with its phases
+           timed by CUDA events and the kernel launches counted from 0
+           (every kernel must be launched), its proof's sha256 held to
+           the JAX package's; first the zk Wormhole, then one zk salt
+           draw timed on its own and held to the CPU's draw, then the
+           non-zk Wormhole and the voting proofs; then three more warm
+           proves of each Wormhole config in turn, on the host clock;
+  verify   verify every proof on the host; reject the zk Wormhole proof
+           with a tampered public input and with a flipped salt word in
+           a wires query opening, and the non-zk one with a tampered
+           public input;
   report   one JSON line of kernel times and bounds (`ms`: CUDA events
            around 10 calls; K3 also `graph_ms`, over replays of a CUDA
-           graph; K1 and K3 also at every shape the warm prove launched
-           them with, summed as prove_ms, K3's from graph replays), the
+           graph; K1 and K3 also at every shape the warm zk prove
+           launched them with, summed as prove_ms, K3's from graph
+           replays, and the same for the non-zk prove as *_nonzk), the
            card's name and power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
@@ -55,6 +67,7 @@ from qzk_tpu_torch.ops import ntt_fourstep as nfs  # noqa: E402
 from qzk_tpu_torch.ops import ntt_torch as ntp  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_cuda as pc  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_torch as pt  # noqa: E402
+from qzk_tpu_torch.ops import threefry  # noqa: E402
 
 # The kernels benchmark's NTT size: its 2^22 transform runs as two K3
 # passes over (2048, 2048).
@@ -181,16 +194,18 @@ def phase_build(state) -> None:
                     log("  ptxas: " + line.strip())
 
 
-def kernel_widths(state) -> list[int]:
-    """K1 widths of the circuit's main path."""
-    common = state["common"]
+def kernel_widths(common) -> set[int]:
+    """K1 widths of a circuit's prove: tree levels (8), the leaves of
+    the preprocessed, wires, zs and quotient trees (the last three with
+    four salt columns under zero knowledge), and the FRI layers."""
     cfg = common.config
+    salt = 4 if cfg.zero_knowledge else 0
     pre_w = len(common.gates) + cfg.num_constants + cfg.num_routed_wires
-    widths = {8, cfg.num_wires, common.num_zs_partial_products_polys,
-              common.num_quotient_polys, pre_w}
+    widths = {8, pre_w, cfg.num_wires + salt, common.num_zs_partial_products_polys + salt,
+              common.num_quotient_polys + salt}
     for ab in cfg.fri_config.reduction_arity_bits(common.degree_bits):
         widths.add(2 << ab)
-    return sorted(widths)
+    return widths
 
 
 def canonical_rows(rng, shape, dev) -> torch.Tensor:
@@ -201,11 +216,10 @@ def canonical_rows(rng, shape, dev) -> torch.Tensor:
     return gt.from_u64(x, dev)
 
 
-def ntt_shapes(state) -> list[tuple[int, int]]:
-    """(log_n, batch) of every four-step NTT on the main path: the
+def ntt_shapes(common) -> set[tuple[int, int]]:
+    """(log_n, batch) of every four-step NTT of a circuit's prove: the
     wires and zs iNTT at 2^degree_bits, the quotient iNTT at 2^lde_bits,
     and the LDE of the wires, zs, quotient and preprocessed rows."""
-    common = state["common"]
     cfg = common.config
     pre_w = len(common.gates) + cfg.num_constants + cfg.num_routed_wires
     zs = common.num_zs_partial_products_polys
@@ -213,7 +227,7 @@ def ntt_shapes(state) -> list[tuple[int, int]]:
               (common.lde_bits, cfg.num_challenges)}
     for b in (cfg.num_wires, zs, common.num_quotient_polys, pre_w):
         shapes.add((common.lde_bits, b))
-    return sorted(shapes)
+    return shapes
 
 
 def check_k3(name: str, x: torch.Tensor, stw: torch.Tensor, tw) -> int:
@@ -228,8 +242,11 @@ def phase_kernels(state) -> None:
     lde = state["common"].lde_size
     results = []
     err = {"hash_rows": 0, "permute": 0, "ntt_axis0": 0}
+    commons = [data.common for data, _ in state["circuits"].values()]
+    widths = sorted(set().union(*map(kernel_widths, commons)))
+    shapes = sorted(set().union(*map(ntt_shapes, commons)))
     with Phase("kernels"):
-        for w in kernel_widths(state):
+        for w in widths:
             for n in (lde, 1037):
                 x = edge_rows(rng, n, w, dev)
                 got = pc.hash_no_pad_rows(x)
@@ -250,7 +267,7 @@ def phase_kernels(state) -> None:
         # K3: both passes of every main-path four-step transform, and of
         # the 2^22 one, as the plan launches them (the second reads the
         # transpose of the first's output in place)
-        for log_n, b in ntt_shapes(state) + [(BENCH_LOG_N, 1)]:
+        for log_n, b in shapes + [(BENCH_LOG_N, 1)]:
             plan = nfs.get_fourstep_cuda_plan(log_n)
             for inverse in (False, True):
                 tw2, twiddle, tw1 = plan.tables(dev, inverse)
@@ -302,19 +319,28 @@ def phase_ntt(state) -> None:
         f"its inverse gives the input back; {ms:.4f} ms")
 
 
-def time_k1_per_prove(state, rng, dev) -> tuple[float, list]:
-    """K1's time summed over the warm prove's launches: each distinct
+def k1_work(n: int, w: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one K1 call on (n, w): the rows
+    read and the digests written once; one permutation a row for each
+    8-word chunk."""
+    return n * w * 8 + n * 4 * 8, n * max(1, -(-w // 8)) * INT_MULS_PER_PERM
+
+
+def time_k1_per_prove(k1_shapes, rng, dev) -> tuple[float, list, float]:
+    """K1's time summed over a warm prove's launches: each distinct
     (n, w) it was launched with, timed on edge inputs of that shape,
-    times its count.  Returns the sum and [n, w, count, ms] per shape."""
+    times its count.  Returns the sum, [n, w, count, ms, bound_ms] per
+    shape, and the summed bound."""
     shapes = []
-    for (n, w), count in sorted(state["k1_shapes"].items()):
+    for (n, w), count in sorted(k1_shapes.items()):
         rows = edge_rows(rng, n, w, dev)
-        shapes.append([n, w, count, cuda_ms(lambda: pc.hash_no_pad_rows(rows))])
-    return sum(count * ms for _, _, count, ms in shapes), shapes
+        ms = cuda_ms(lambda: pc.hash_no_pad_rows(rows))
+        shapes.append([n, w, count, ms, bound_ms(*k1_work(n, w))[0]])
+    return (sum(s[2] * s[3] for s in shapes), shapes, sum(s[2] * s[4] for s in shapes))
 
 
-def time_k3_per_prove(state, rng, dev) -> tuple[float, list, float]:
-    """K3's time summed over the warm prove's launches, as for K1: each
+def time_k3_per_prove(k3_shapes, rng, dev) -> tuple[float, list, float]:
+    """K3's time summed over a warm prove's launches, as for K1: each
     distinct (b, log_n, m, strided, twiddle) it was launched with, timed
     with graph_ms on canonical inputs of that shape and layout (a strided
     input is the transpose of a contiguous tensor, as the second
@@ -322,7 +348,7 @@ def time_k3_per_prove(state, rng, dev) -> tuple[float, list, float]:
     log_n, m, strided, twiddle, count, ms, bound_ms] per shape, and the
     summed bound."""
     shapes = []
-    for (b, log_n, m, strided, tw), count in sorted(state["k3_shapes"].items()):
+    for (b, log_n, m, strided, tw), count in sorted(k3_shapes.items()):
         n = 1 << log_n
         x = canonical_rows(rng, (b, m, n) if strided else (b, n, m), dev)
         x = x.transpose(1, 2) if strided else x
@@ -341,12 +367,12 @@ def time_kernels(state) -> list[dict]:
     common = state["common"]
     n, w = common.lde_size, common.config.num_wires
     rows = edge_rows(rng, n, w, dev)
-    perms = n * max(1, -(-w // 8))
     k1_ms = cuda_ms(lambda: pc.hash_no_pad_rows(rows))
     k1_plain = cuda_ms(lambda: pt.hash_no_pad_batch(rows), iters=2, warmup=1)
-    k1_bytes = rows.numel() * 8 + n * 4 * 8
-    k1_ops = perms * INT_MULS_PER_PERM
-    k1_prove_ms, k1_prove_shapes = time_k1_per_prove(state, rng, dev)
+    k1_bytes, k1_ops = k1_work(n, w)
+    # per warm prove: the zk main path's shapes, and the non-zk ones
+    runs = {"": state["runs"]["wormhole_zk"], "_nonzk": state["runs"]["wormhole_nonzk"]}
+    k1_prove = {tag: time_k1_per_prove(r["k1_shapes"], rng, dev) for tag, r in runs.items()}
     b = 1 << 18
     states = edge_rows(rng, b, 12, dev)
     k2_ms = cuda_ms(lambda: pc.permute(states))
@@ -360,8 +386,8 @@ def time_kernels(state) -> list[dict]:
     k3_graph_ms = graph_ms(lambda: nc.ntt_axis0(x, tw2, twiddle))
     k3_plain = cuda_ms(lambda: ntp.ntt_axis0(x, tw2, twiddle), iters=2, warmup=1)
     k3_bytes, k3_ops = ntt_axis0_work(1, plan.log2, plan.n1, True)
-    k3_prove_ms, k3_prove_shapes, k3_prove_bound = time_k3_per_prove(state, rng, dev)
-    launches = state["launches"]
+    k3_prove = {tag: time_k3_per_prove(r["k3_shapes"], rng, dev) for tag, r in runs.items()}
+    launches = runs[""]["launches"]
 
     def rec(name, src, replaces, key, ms, plain, nbytes, ops, shape):
         bound, by = bound_ms(nbytes, ops)
@@ -370,22 +396,26 @@ def time_kernels(state) -> list[dict]:
             "launches": launches[key], "max_abs_err": state["max_abs_err"][key],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "shape": shape,
+            "launches_by_path": {p: r["launches"][key] for p, r in state["runs"].items()},
         }
+
+    def add_per_prove(record, per_prove):
+        for tag, (total, shapes, bound) in per_prove.items():
+            record.update({f"prove_ms{tag}": total, f"prove_shapes{tag}": shapes,
+                           f"prove_bound_ms{tag}": bound})
+            log(f"{record['name'].split()[0]} per warm {'non-zk' if tag else 'zk'} prove: "
+                f"{len(shapes)} shapes, {sum(s[-3] for s in shapes)} launches, "
+                f"{total:.4f} ms (bound {bound:.4f} ms)")
 
     k1 = rec("K1 hash_no_pad_rows", "qzk_tpu_torch/ops/csrc/poseidon.cu",
              "qzk_tpu/ops/poseidon_pallas.py:354", "hash_rows", k1_ms, k1_plain,
              k1_bytes, k1_ops, [n, w])
-    k1.update(prove_ms=k1_prove_ms, prove_shapes=k1_prove_shapes)
-    log(f"K1 per warm prove: {len(k1_prove_shapes)} shapes, "
-        f"{sum(c for _, _, c, _ in k1_prove_shapes)} launches, {k1_prove_ms:.4f} ms")
+    add_per_prove(k1, k1_prove)
     k3 = rec("K3 ntt_axis0", "qzk_tpu_torch/ops/csrc/ntt.cu",
              "qzk_tpu/ops/ntt_pallas.py:119", "ntt_axis0", k3_ms, k3_plain,
              k3_bytes, k3_ops, [1, plan.n2, plan.n1])
-    k3.update(graph_ms=k3_graph_ms, prove_ms=k3_prove_ms, prove_shapes=k3_prove_shapes,
-              prove_bound_ms=k3_prove_bound)
-    log(f"K3 per warm prove: {len(k3_prove_shapes)} shapes, "
-        f"{sum(s[5] for s in k3_prove_shapes)} launches, {k3_prove_ms:.4f} ms "
-        f"(bound {k3_prove_bound:.4f} ms)")
+    k3["graph_ms"] = k3_graph_ms
+    add_per_prove(k3, k3_prove)
     return [
         k1,
         rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
@@ -395,79 +425,174 @@ def time_kernels(state) -> list[dict]:
     ]
 
 
+# The circuits the run proves: the zk Wormhole is the main path.
+PATHS = ("wormhole_zk", "wormhole_nonzk", "voting_nonzk", "voting_zk")
+KERNELS = ("hash_rows", "permute", "ntt_axis0")
+
+
 def phase_circuit(state) -> None:
+    from qzk_tpu_torch.models.voting.fixtures import build_vote_circuit
     from qzk_tpu_torch.models.wormhole.circuit import WormholeCircuit
     from qzk_tpu_torch.plonk.config import CircuitConfig
 
+    configs = {"zk": CircuitConfig.standard_recursion_zk_config(),
+               "nonzk": CircuitConfig.standard_recursion_config()}
+    circuits = {}
     with Phase("circuit"):
-        circuit = WormholeCircuit(CircuitConfig.standard_recursion_config())
-        targets = circuit.targets()
-        data = circuit.build_circuit()
-    state.update(data=data, targets=targets, common=data.common)
-    log(f"circuit: degree 2^{data.common.degree_bits}, "
-        f"{len(data.common.gates)} gate types")
+        for name in PATHS:
+            model, tag = name.split("_")
+            if model == "wormhole":
+                circuit = WormholeCircuit(configs[tag])
+                targets = circuit.targets()
+                circuits[name] = (circuit.build_circuit(), targets)
+            else:
+                circuits[name] = build_vote_circuit(configs[tag])
+    state.update(circuits=circuits, common=circuits["wormhole_zk"][0].common)
+    for name, (data, _) in circuits.items():
+        log(f"circuit {name}: degree 2^{data.common.degree_bits}, "
+            f"{len(data.common.gates)} gate types, zk {data.common.config.zero_knowledge}")
 
 
-def phase_prove(state) -> None:
-    from qzk_tpu_torch.models.wormhole.fixtures import (
-        WORMHOLE_NONZK_PROOF_SHA256,
-        synthetic_circuit_inputs,
-    )
+def prover_of(state, name):
+    """prove(timer=None) -> a fresh proof of circuit `name` from its
+    inputs, on the card."""
+    from qzk_tpu_torch.models.voting.fixtures import create_test_inputs
+    from qzk_tpu_torch.models.wormhole.fixtures import synthetic_circuit_inputs
     from qzk_tpu_torch.models.wormhole.prover import WormholeProver
+    from qzk_tpu_torch.plonk.witness import PartialWitness
+
+    data, targets = state["circuits"][name]
+    if name.startswith("wormhole"):
+        def prove(timer=None):
+            prover = WormholeProver(data.common.config, _circuit_data=data.prover_data(),
+                                    _targets=targets, device="cuda")
+            return prover.commit(synthetic_circuit_inputs()).prove(timer=timer)
+    else:
+        def prove(timer=None):
+            pw = PartialWitness()
+            create_test_inputs().fill_targets(pw, targets)
+            return data.prove(pw, device="cuda", timer=timer)
+    return prove
+
+
+def drive(state, name) -> None:
+    """Prove circuit `name` once, then once warm with its phases timed
+    and the kernel launches counted from 0; every kernel must have been
+    launched and the proof's sha256 must be the JAX package's."""
+    from qzk_tpu_torch.models.voting import fixtures as vfix
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
     from qzk_tpu_torch.plonk.prover import PhaseTimer
 
-    data, cfg = state["data"], state["common"].config
-
-    def prove(timer=None):
-        prover = WormholeProver(cfg, _circuit_data=data.prover_data(),
-                                _targets=state["targets"], device="cuda")
-        return prover.commit(synthetic_circuit_inputs()).prove(timer=timer)
-
-    with Phase("prove (first, includes per-circuit device setup)"):
+    pins = {"wormhole_zk": wfix.WORMHOLE_ZK_PROOF_SHA256,
+            "wormhole_nonzk": wfix.WORMHOLE_NONZK_PROOF_SHA256,
+            "voting_nonzk": vfix.VOTING_NONZK_PROOF_SHA256,
+            "voting_zk": vfix.VOTING_ZK_PROOF_SHA256}
+    prove = prover_of(state, name)
+    with Phase(f"prove {name} (first, includes per-circuit device setup)"):
         prove()
     timer = PhaseTimer(cuda_events=True)
     pc.reset_launches()
     nc.reset_launches()
-    with Phase("prove (warm)") as ph:
+    with Phase(f"prove {name} (warm)") as ph:
         proof = prove(timer)
-    state["launches"] = {**pc.LAUNCHES, **nc.LAUNCHES}
-    state["k1_shapes"] = Counter(pc.K1_SHAPES)
-    state["k3_shapes"] = Counter(nc.K3_SHAPES)
-    for name, ms in timer.results():
-        log(f"  prove phase {name}: {ms / 1e3:.4f} s")
-    log(f"prove: {ph.seconds:.3f} s; launches K1 {state['launches']['hash_rows']}, "
-        f"K2 {state['launches']['permute']}, K3 {state['launches']['ntt_axis0']}")
-    for key in ("hash_rows", "permute", "ntt_axis0"):
-        if state["launches"][key] <= 0:
-            raise AssertionError(f"kernel {key} was not launched on the main path")
+    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+    state["runs"][name] = {
+        "proof": proof, "prove": prove, "launches": launches,
+        "k1_shapes": Counter(pc.K1_SHAPES), "k3_shapes": Counter(nc.K3_SHAPES),
+    }
+    for phase, ms in timer.results():
+        log(f"  prove {name} phase {phase}: {ms / 1e3:.4f} s")
+    log(f"prove {name}: {ph.seconds:.3f} s; launches K1 {launches['hash_rows']}, "
+        f"K2 {launches['permute']}, K3 {launches['ntt_axis0']}")
+    for key in KERNELS:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the {name} path")
     digest = hashlib.sha256(proof.to_bytes()).hexdigest()
-    if digest != WORMHOLE_NONZK_PROOF_SHA256:
-        raise AssertionError(f"proof sha256 {digest} != {WORMHOLE_NONZK_PROOF_SHA256}")
-    log(f"prove: proof sha256 {digest} matches the JAX package's")
-    state["proof"] = proof
+    if digest != pins[name]:
+        raise AssertionError(f"{name} proof sha256 {digest} != {pins[name]}")
+    log(f"prove {name}: proof sha256 {digest} matches the JAX package's")
+
+
+def time_salt_draw(state) -> None:
+    """One zk salt draw, (lde_size, 4), on the card: equal to the CPU's
+    draw, and its time by CUDA events around 10 draws."""
+    dev = torch.device("cuda")
+    _, sub = threefry.split(threefry.prng_key(20261017))
+    shape = (state["common"].lde_size, 4)
+    got = threefry.random_bits_u64_shr1(sub, shape, dev)
+    require_equal(f"salt draw {shape}", got, threefry.random_bits_u64_shr1(sub, shape, "cpu"))
+    ms = cuda_ms(lambda: threefry.random_bits_u64_shr1(sub, shape, dev))
+    log(f"salt draw {shape}: {ms:.4f} ms (CUDA events, 10 draws), equal to the CPU's "
+        f"draw; three a zk prove")
+
+
+def phase_prove(state) -> None:
+    state["runs"] = {}
+    drive(state, "wormhole_zk")
+    time_salt_draw(state)
+    for name in PATHS[1:]:
+        drive(state, name)
+    spread = {"wormhole_zk": [], "wormhole_nonzk": []}
+    with Phase("prove spread (warm, host clock, zk and non-zk in turn)"):
+        for _ in range(3):
+            for name, times in spread.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state["runs"][name]["prove"]()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+    for name, times in spread.items():
+        log(f"prove spread {name}: " + ", ".join(f"{t:.4f}" for t in times) + " s")
+
+
+def rejects(verify, proof) -> bool:
+    from qzk_tpu_torch.plonk.fri import VerificationError
+
+    try:
+        verify(proof)
+    except VerificationError:
+        return True
+    return False
+
+
+def verifier_of(state, name):
+    """verify(proof) of circuit `name`, through its session API."""
+    from qzk_tpu_torch.models.wormhole.verifier import WormholeVerifier
+
+    data = state["circuits"][name][0]
+    if name.startswith("wormhole"):
+        return WormholeVerifier.new(data.common.config, data.verifier_data()).verify
+    return data.verifier_data().verify
 
 
 def phase_verify(state) -> None:
     import copy
 
-    from qzk_tpu_torch.models.wormhole.verifier import WormholeVerifier
-    from qzk_tpu_torch.plonk.fri import VerificationError
-
-    data, proof = state["data"], state["proof"]
-    verifier = WormholeVerifier.new(state["common"].config, data.verifier_data())
     with Phase("verify"):
-        verifier.verify(proof)
-        bad = copy.deepcopy(proof)
-        bad.public_inputs[0] = np.uint64((int(bad.public_inputs[0]) + 1) % gl.P)
-        try:
-            verifier.verify(bad)
-        except VerificationError:
-            rejected = True
-        else:
-            rejected = False
-    if not rejected:
-        raise AssertionError("the verifier accepted a tampered proof")
-    log("verify: proof verifies; tampered public input rejected")
+        for name, run in state["runs"].items():
+            verifier_of(state, name)(run["proof"])
+        zk_verify = verifier_of(state, "wormhole_zk")
+        zk_proof = state["runs"]["wormhole_zk"]["proof"]
+        bad_pi = copy.deepcopy(zk_proof)
+        bad_pi.public_inputs[0] = np.uint64((int(bad_pi.public_inputs[0]) + 1) % gl.P)
+        bad_salt = copy.deepcopy(zk_proof)
+        leaf = bad_salt.proof.fri.query_rounds[0].initial.leaves[1]
+        if len(leaf) != state["common"].config.num_wires + 4:
+            raise AssertionError(f"wires leaf of {len(leaf)} words carries no salt")
+        leaf[-1] = np.uint64((int(leaf[-1]) + 1) % gl.P)
+        nonzk = state["runs"]["wormhole_nonzk"]["proof"]
+        bad_nonzk = copy.deepcopy(nonzk)
+        bad_nonzk.public_inputs[0] = np.uint64((int(bad_nonzk.public_inputs[0]) + 1) % gl.P)
+        checks = {
+            "zk tampered public input": rejects(zk_verify, bad_pi),
+            "zk flipped salt word": rejects(zk_verify, bad_salt),
+            "non-zk tampered public input": rejects(
+                verifier_of(state, "wormhole_nonzk"), bad_nonzk),
+        }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"the verifier accepted a proof with a {what}")
+    log(f"verify: {', '.join(state['runs'])} proofs verify; rejected: {', '.join(checks)}")
 
 
 def phase_report(state) -> None:

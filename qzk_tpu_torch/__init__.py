@@ -6,11 +6,14 @@ tensors.  The JAX package stays the reference; this package imports
 neither it nor JAX.
 
 Layout (mirrors qzk_tpu):
-  ops/      — field, Poseidon, NTT, Merkle (numpy oracles, torch device
-              code, and the hand-written CUDA kernels in ops/csrc)
+  ops/      — field, Poseidon, NTT, Merkle, the zk threefry stream
+              (numpy oracles, torch device code, and the hand-written
+              CUDA kernels in ops/csrc)
   plonk/    — circuit builder, witness generation, the staged device
               prover, the host verifier, configs
-  models/   — the Wormhole circuit and its session APIs
+  models/   — the Wormhole circuit and its session APIs; the voting
+              circuit
+  benches/  — kernel, SASS and warm zk prove benchmarks
   native/   — host C++ kernels (witness executor, Merkle walk)
   utils/    — codecs, device selection, the native library builds
   convert.py — qzk_tpu CircuitData -> this package's CircuitData

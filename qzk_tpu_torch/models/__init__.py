@@ -1,2 +1,3 @@
 """Application circuits ("models"): the Quantus wormhole
-message-verification circuit family."""
+message-verification circuit family and the anonymous voting
+circuit."""

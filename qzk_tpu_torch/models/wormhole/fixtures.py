@@ -3,10 +3,12 @@ defaults (reference wormhole/tests/test-helpers/src/lib.rs:10-80) and
 ``synthetic_circuit_inputs``, a copy of the JAX package's test fixture
 of that name (the card has no JAX, so the port keeps its own).
 
-``WORMHOLE_NONZK_PROOF_SHA256`` is the sha256 of the proof bytes that
-the JAX package's prover gives for ``synthetic_circuit_inputs()`` under
-``CircuitConfig.standard_recursion_config()``;
-tests/test_torch_wormhole.py pins it against qzk_tpu.
+``WORMHOLE_NONZK_PROOF_SHA256`` and ``WORMHOLE_ZK_PROOF_SHA256`` are the
+sha256 of the proof bytes that the JAX package's prover gives for
+``synthetic_circuit_inputs()`` under
+``CircuitConfig.standard_recursion_config()`` and
+``standard_recursion_zk_config()``; tests/test_torch_wormhole.py and
+tests/test_torch_zk.py pin them against qzk_tpu.
 """
 
 from .inputs import (
@@ -21,6 +23,9 @@ from ...utils import codec
 
 WORMHOLE_NONZK_PROOF_SHA256 = (
     "67129ba1b560dfc4900eed96c47cd1cd63c2c47239219d286a376fcb3a020184"
+)
+WORMHOLE_ZK_PROOF_SHA256 = (
+    "2a1e822d7e5bb966976f19de117a9b82f5ae47c5465705216c526f48cee518f9"
 )
 
 DEFAULT_SECRET = (

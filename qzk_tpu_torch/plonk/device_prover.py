@@ -21,7 +21,9 @@ rounds' leaves and paths.  Merkle hashing runs on the CUDA row sponge
 ops/poseidon_cuda.py; every iNTT and coset LDE is the four-step
 transform on the CUDA NTT kernel (K3), through ops/ntt_fourstep.py; the
 rest is torch tensor code on int64 bit patterns
-(ops/goldilocks_torch.py).
+(ops/goldilocks_torch.py).  Under zero knowledge the wires, zs and
+quotient leaves carry four salt columns each (the preprocessed tree
+none), which the FRI batches skip and the query openings carry.
 """
 
 from __future__ import annotations
@@ -140,14 +142,16 @@ class DeviceProverContext:
             + np.asarray(prover_only.slot_cols, dtype=np.int64)
         )
         self._n_vals = int(prover_only.plan.num_targets)
+        self._n_used = len(prover_only.rows)
         gather = np.full(N * W, self._n_vals, dtype=np.int64)
         gather[flat] = np.asarray(prover_only.slot_targets, dtype=np.int64)
         self._wire_gather = torch.as_tensor(gather, device=device)
 
     # -- stages ---------------------------------------------------------------
 
-    def assemble_wires(self, values: np.ndarray) -> torch.Tensor:
-        """Host witness values -> (N, 135) wire matrix on the device."""
+    def assemble_wires(self, values: np.ndarray, blind=None) -> torch.Tensor:
+        """Host witness values -> (N, 135) wire matrix on the device;
+        rows n_used: take the zk blind block when there is one."""
         values = np.asarray(values, dtype=np.uint64)
         if len(values) != self._n_vals:
             raise ValueError(
@@ -155,19 +159,25 @@ class DeviceProverContext:
             )
         v = gt.from_u64(np.concatenate([values, np.zeros(1, np.uint64)]), self.device)
         N, W = self.common.degree, self.common.config.num_wires
-        return v[self._wire_gather].reshape(N, W)
+        wm = v[self._wire_gather].reshape(N, W)
+        if blind is not None:
+            wm[self._n_used :] = blind
+        return wm
 
-    def _commit_leaves(self, lde_t: torch.Tensor) -> DeviceTree:
-        leaves = lde_t.contiguous()
+    def _commit_leaves(self, lde_t: torch.Tensor, salt=None) -> DeviceTree:
+        """Merkle tree over the rows of `lde_t`, with the zk salt's four
+        columns appended to each leaf when there is one."""
+        leaves = lde_t.contiguous() if salt is None else torch.cat([lde_t, salt], dim=1)
         cap_height = self.common.config.fri_config.cap_height
         return DeviceTree.from_levels(leaves, mk.build_merkle_levels(leaves, cap_height))
 
-    def commit(self, values: torch.Tensor):
-        """(S, N) subgroup values -> coeffs, (S, 8N) coset LDE, tree."""
+    def commit(self, values: torch.Tensor, salt=None):
+        """(S, N) subgroup values -> coeffs, (S, 8N) coset LDE, tree
+        (salted leaves under zero knowledge)."""
         common = self.common
         coeffs = self.ntt_n.intt(values)
         lde = nfs.coset_lde(coeffs, common.config.fri_config.rate_bits, self.shift_n)
-        return coeffs, lde, self._commit_leaves(lde.T)
+        return coeffs, lde, self._commit_leaves(lde.T, salt)
 
     def zs_stage(self, w_routed, betas, gammas):
         """(N, 80) routed wires -> (num_zs_pp, N) Z / partial-product
@@ -402,10 +412,13 @@ def _rounds_from_data(oracle_data, step_data, Q):
     return rounds
 
 
-def device_prove(common, prover_only, values, public_inputs, pi_hash,
-                 device: torch.device, timer=None) -> ProofWithPublicInputs:
+def device_prove(common, prover_only, values, blind_block, public_inputs, pi_hash,
+                 fresh_salt, device: torch.device, timer=None) -> ProofWithPublicInputs:
     """Steps 2-5 of the prove pipeline on `device`, from the host
-    witness values.  Called by plonk.prover.prove."""
+    witness values.  Called by plonk.prover.prove, which passes the zk
+    blind block (or None) and fresh_salt(n_leaves), the next (n, 4)
+    salt of the blinding stream (None without zero knowledge): drawn
+    for the wires, the zs and the quotient, in that order."""
     cfg = common.config
     fri_cfg = cfg.fri_config
     mark = timer.mark if timer is not None else (lambda name: None)
@@ -415,8 +428,10 @@ def device_prove(common, prover_only, values, public_inputs, pi_hash,
         return gt.from_u64(np.asarray(a, dtype=np.uint64), device)
 
     # 2. commit wires ---------------------------------------------------------
-    wire_matrix = ctx.assemble_wires(values)  # (N, 135)
-    wires_coeffs, wires_lde, wires_tree = ctx.commit(wire_matrix.T)
+    wire_matrix = ctx.assemble_wires(values, blind_block)  # (N, 135)
+    wires_coeffs, wires_lde, wires_tree = ctx.commit(
+        wire_matrix.T, fresh_salt(common.lde_size)
+    )
     mark("wires")
 
     challenger = Challenger()
@@ -430,7 +445,7 @@ def device_prove(common, prover_only, values, public_inputs, pi_hash,
     zs_pp = ctx.zs_stage(
         wire_matrix[:, : cfg.num_routed_wires], dev(betas), dev(gammas)
     )
-    zs_coeffs, zs_lde, zs_tree = ctx.commit(zs_pp)
+    zs_coeffs, zs_lde, zs_tree = ctx.commit(zs_pp, fresh_salt(common.lde_size))
     mark("zs")
     challenger.observe_cap(zs_tree.cap)
     alphas = challenger.get_n_challenges(cfg.num_challenges)
@@ -444,7 +459,7 @@ def device_prove(common, prover_only, values, public_inputs, pi_hash,
             "constraints unsatisfied: quotient degree overflow "
             "(witness does not satisfy the circuit)"
         )
-    quotient_tree = ctx._commit_leaves(quotient_lde.T)
+    quotient_tree = ctx._commit_leaves(quotient_lde.T, fresh_salt(common.lde_size))
     mark("quotient")
     challenger.observe_cap(quotient_tree.cap)
     zeta = challenger.get_extension_challenge()

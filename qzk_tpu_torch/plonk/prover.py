@@ -10,7 +10,9 @@ SURVEY.md §3.1 steps 1-5):
 
 Steps 2-5 run in plonk/device_prover.py on the device the caller names:
 CUDA by default, the CPU when asked (the plain torch versions of the
-kernels then run).
+kernels then run).  Under zero knowledge, the wires, zs and quotient
+trees commit leaves salted with four columns each from the witness's
+blinding stream (blinding_stream), drawn on that device.
 
 Transcript spec (normative):
   observe circuit digest, observe H(public_inputs);
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import poseidon as pos
+from ..ops import threefry
 from ..utils.device import resolve_device
 from .proof import ProofWithPublicInputs
 from .witness import run_generators
@@ -66,16 +69,37 @@ class PhaseTimer:
         return out
 
 
+def blinding_stream(values: np.ndarray, device):
+    """The zk blinding stream of a witness: a function shape -> the
+    next draw, an int64 tensor of canonical field elements on `device`.
+
+    The seed is the first word of hash_no_pad over the first 1024
+    witness values, masked to 63 bits; each draw splits the key once and
+    takes jax.random.bits(sub, shape, "uint64") >> 1, bit for bit
+    (ops/threefry.py).  The draw order is part of the stream."""
+    seed = int.from_bytes(
+        pos.hash_no_pad(values[: min(len(values), 1024)])
+        .astype("<u8")
+        .tobytes()[:8],
+        "little",
+    )
+    blind_key = threefry.prng_key(seed & 0x7FFFFFFFFFFFFFFF)
+
+    def _blind_bits(shape):
+        nonlocal blind_key
+        blind_key, sub = threefry.split(blind_key)
+        return threefry.random_bits_u64_shr1(sub, shape, device)
+
+    return _blind_bits
+
+
 def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
           ) -> ProofWithPublicInputs:
     """Prove the circuit for the partial witness `pw` on `device`
     (CUDA unless the caller passes "cpu")."""
     dev = resolve_device(device)
-    if common.config.zero_knowledge:
-        raise NotImplementedError(
-            "zero-knowledge proving is not ported yet: its blinding needs a "
-            "bit-exact port of jax.random threefry (the zk slice)"
-        )
+    cfg = common.config
+    N = common.degree
     values, _known = run_generators(prover_only.plan, pw)
     if timer is not None:
         timer.mark("witness")
@@ -86,8 +110,26 @@ def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
     ] if prover_only.public_inputs else np.zeros(0, dtype=np.uint64)
     pi_hash = pos.hash_no_pad(public_inputs)
 
+    _blind_bits = blinding_stream(values, dev) if cfg.zero_knowledge else None
+    n_used = len(prover_only.rows)
+    blind_block = None  # blinds unconstrained padding rows
+    if cfg.zero_knowledge and n_used < N:
+        # the first split, before any fresh_salt (the split order is
+        # part of the deterministic blinding stream)
+        blind_block = _blind_bits((N - n_used, cfg.num_wires))
+    if timer is not None and cfg.zero_knowledge:
+        timer.mark("blinding")
+
+    def fresh_salt(n_leaves):
+        """(n_leaves, 4) blinding salt on the prove device, or None
+        without zero knowledge."""
+        if not cfg.zero_knowledge:
+            return None
+        return _blind_bits((n_leaves, 4))
+
     from .device_prover import device_prove
 
     return device_prove(
-        common, prover_only, values, public_inputs, pi_hash, dev, timer
+        common, prover_only, values, blind_block, public_inputs, pi_hash,
+        fresh_salt, dev, timer,
     )

@@ -31,6 +31,13 @@ def _modules():
 
 
 def test_package_and_chip_smoke_import_no_jax(tmp_path):
+    assert {
+        "qzk_tpu_torch.ops.threefry",
+        "qzk_tpu_torch.benches.prove",
+        "qzk_tpu_torch.models.voting",
+        "qzk_tpu_torch.models.voting.circuit",
+        "qzk_tpu_torch.models.voting.fixtures",
+    } <= set(_modules())
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -75,13 +82,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         resolve_device("meta")
 
 
-def test_prove_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
+@pytest.mark.parametrize("zk", [False, True], ids=["nonzk", "zk"])
+def test_prove_without_a_card_raises_unless_cpu_is_asked(monkeypatch, zk):
     from qzk_tpu_torch.plonk.builder import CircuitBuilder
     from qzk_tpu_torch.plonk.config import CircuitConfig
     from qzk_tpu_torch.plonk.witness import PartialWitness
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config().with_zero_knowledge(zk))
     x = builder.add_virtual_target()
     builder.register_public_input(builder.mul(x, x))
     data = builder.build()

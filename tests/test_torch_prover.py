@@ -2,11 +2,15 @@
 type (arithmetic, Poseidon, bit decomposition, constants, public
 inputs): the port (qzk_tpu_torch) builds and proves it on device="cpu",
 where its device pipeline runs the kernels' plain torch versions, and
-the proof bytes must equal the JAX package's default CPU prove.  The
-same holds when the port proves the circuit built by qzk_tpu, carried
-across by qzk_tpu_torch.convert.from_jax_circuit_data."""
+the proof bytes must equal the JAX package's default CPU prove, under
+the non-zk config and under zero knowledge (salted leaves from the
+threefry blinding stream).  The same holds when the port proves the
+circuit built by qzk_tpu, carried across by
+qzk_tpu_torch.convert.from_jax_circuit_data."""
 
+import copy
 import hashlib
+import json
 
 import numpy as np
 import pytest
@@ -19,10 +23,11 @@ import qzk_tpu_torch.plonk.builder as tbuilder
 import qzk_tpu_torch.plonk.config as tconfig
 import qzk_tpu_torch.plonk.witness as twitness
 from qzk_tpu.utils.serialization import common_to_bytes
+from qzk_tpu_torch.benches.prove import time_proves
 from qzk_tpu_torch.convert import from_jax_circuit_data
 from qzk_tpu_torch.ops import goldilocks as gl
 from qzk_tpu_torch.plonk.fri import VerificationError
-from qzk_tpu_torch.plonk.prover import PhaseTimer
+from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_stream
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -112,10 +117,54 @@ def test_timer_sees_every_phase(torch_side):
     ]
 
 
-def test_zero_knowledge_raises_instead_of_a_different_proof():
-    data, pw = _build(tbuilder, tconfig, twitness, zk=True)
-    with pytest.raises(NotImplementedError, match="zk slice"):
-        data.prove(pw, device="cpu")
+@pytest.fixture(scope="module")
+def zk_sides():
+    jdata, jpw = _build(jbuilder, jconfig, jwitness, zk=True)
+    tdata, tpw = _build(tbuilder, tconfig, twitness, zk=True)
+    timer = PhaseTimer()
+    tproof = tdata.prove(tpw, device="cpu", timer=timer)
+    return jdata, jdata.prove(jpw), tdata, tpw, tproof, timer
+
+
+def test_zero_knowledge_timer_sees_the_blinding_phase(zk_sides):
+    assert [name for name, _ in zk_sides[5].results()] == [
+        "witness", "blinding", "wires", "zs", "quotient", "openings", "fri input",
+        "fri layers + pow", "queries",
+    ]
+
+
+def test_zero_knowledge_proof_bytes_match_jax(zk_sides):
+    jdata, jproof, tdata, _, tproof, _ = zk_sides
+    assert tdata.common.config.zero_knowledge
+    assert tproof.to_bytes() == jproof.to_bytes()
+    tdata.verify(tproof)
+    jdata.verify(tproof)
+
+
+def test_zero_knowledge_salts_reach_the_query_openings(zk_sides):
+    """Each wires, zs and quotient leaf opens with its four salt words,
+    which are rows of the salts the blinding stream drew (in the order
+    wires, zs, quotient); the preprocessed leaves carry none."""
+    _, _, tdata, tpw, tproof, _ = zk_sides
+    common = tdata.common
+    values, _ = twitness.run_generators(tdata.prover_only.plan, tpw)
+    draw = blinding_stream(values, "cpu")
+    salts = [draw((common.lde_size, 4)).numpy().view(np.uint64) for _ in range(3)]
+    widths = [common.num_preprocessed_polys, common.config.num_wires + 4,
+              common.num_zs_partial_products_polys + 4, common.num_quotient_polys + 4]
+    for rnd in tproof.proof.fri.query_rounds:
+        assert [len(leaf) for leaf in rnd.initial.leaves] == widths
+        for leaf, salt in zip(rnd.initial.leaves[1:], salts):
+            assert (salt == leaf[-4:]).all(axis=1).any()
+
+
+def test_zero_knowledge_flipped_salt_word_is_rejected(zk_sides):
+    _, _, tdata, _, tproof, _ = zk_sides
+    bad = copy.deepcopy(tproof)
+    leaf = bad.proof.fri.query_rounds[0].initial.leaves[1]
+    leaf[-1] = np.uint64((int(leaf[-1]) + 1) % gl.P)
+    with pytest.raises(VerificationError):
+        tdata.verify(bad)
 
 
 def test_proof_hash_is_stable(torch_side):
@@ -125,3 +174,16 @@ def test_proof_hash_is_stable(torch_side):
     _, pw = _build(tbuilder, tconfig, twitness)
     again = data.prove(pw, device="cpu")
     assert hashlib.sha256(again.to_bytes()).digest() == hashlib.sha256(proof.to_bytes()).digest()
+
+
+def test_bench_prove_timing_function_on_the_small_circuit(torch_side):
+    """benches/prove.py's timing function: one warm-up and `runs` timed
+    proves, the seconds and the last proof's sha256."""
+    data, proof, _ = torch_side
+    _, pw = _build(tbuilder, tconfig, twitness)
+    rec = time_proves(lambda: data.prove(pw, device="cpu"), torch.device("cpu"), runs=2)
+    assert rec.pop("proof").to_bytes() == proof.to_bytes()
+    assert sorted(rec) == ["median_s", "min_s", "runs_s", "sha256"]
+    assert json.loads(json.dumps(rec)) == rec
+    assert len(rec["runs_s"]) == 2 and 0 < rec["min_s"] <= rec["median_s"]
+    assert rec["sha256"] == hashlib.sha256(proof.to_bytes()).hexdigest()

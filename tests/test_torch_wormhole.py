@@ -95,13 +95,6 @@ def test_jax_proof_pins_the_port_constant(jax_build):
     assert digest == tfix.WORMHOLE_NONZK_PROOF_SHA256
 
 
-def test_port_rejects_zk_config():
-    prover = TProver(TConfig.standard_recursion_zk_config(), device="cpu")
-    prover.commit(tfix.synthetic_circuit_inputs())
-    with pytest.raises(NotImplementedError):
-        prover.prove()
-
-
 @pytest.mark.skipif(
     os.environ.get("QZK_SLOW_TESTS") != "1",
     reason="the port's full Wormhole prove on the CPU takes minutes; set QZK_SLOW_TESTS=1",
