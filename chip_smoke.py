@@ -6,11 +6,14 @@ Phases, in order:
   build    build the native (g++) and CUDA (nvcc) libraries, all at once;
   circuit  build the Wormhole circuit under the zk standard recursion
            config (the main path: the config of bench.py) and the non-zk
-           one, and the voting circuit under both;
+           one, the voting circuit under both, and the aggregator's
+           chunk circuits: branching 1 over the square test circuit, and
+           branching 2 over the zk Wormhole (the (2, 1) tree's);
   kernels  hold each CUDA kernel (K1, K2: Poseidon; K3: NTT) against its
            plain torch version, bit for bit, at every shape the four
-           proves give it (K1 also at the zk salted leaf widths), at the
-           2^22 NTT's pass shapes and on edge inputs;
+           proves and the two chunk proves give it (K1 also at the zk
+           salted leaf widths), at the 2^22 NTT's pass shapes and on
+           edge inputs;
   ntt      the kernels benchmark's 2^22 forward NTT through K3, checked
            against the plain four-step NTT and the host oracle;
   prove    each circuit from its inputs through the staged device
@@ -21,16 +24,29 @@ Phases, in order:
            draw timed on its own and held to the CPU's draw, then the
            non-zk Wormhole and the voting proofs; then three more warm
            proves of each Wormhole config in turn, on the host clock;
+  aggregate  the recursion layer on the card: the square chunk proof,
+           first and warm, its sha256 held to the JAX package's; a
+           second zk Wormhole leaf (exit account 0x05..., the first is
+           the zk Wormhole proof above); then aggregate_to_tree over the
+           two as a (2, 1) tree, cold and then warm with its phases
+           timed by CUDA events and the kernel launches counted from 0
+           (every kernel must be launched), its root's sha256 held to
+           the JAX package's, and the peak device memory of each; then
+           one zk salt draw at the chunk prove's shape, timed and held
+           to the CPU's draw;
   verify   verify every proof on the host; reject the zk Wormhole proof
            with a tampered public input and with a flipped salt word in
            a wires query opening, and the non-zk one with a tampered
-           public input;
+           public input; verify the square chunk proof and the (2, 1)
+           root, parse the two leaves' public inputs back from the root,
+           and reject the root with a tampered public input;
   report   one JSON line of kernel times and bounds (`ms`: CUDA events
            around 10 calls; K3 also `graph_ms`, over replays of a CUDA
            graph; K1 and K3 also at every shape the warm zk prove
            launched them with, summed as prove_ms, K3's from graph
-           replays, and the same for the non-zk prove as *_nonzk), the
-           card's name and power limit, and the final status line.
+           replays, and the same for the non-zk prove as *_nonzk and for
+           the warm (2, 1) chunk prove as *_agg), the card's name and
+           power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
 Any failure ends the run with a non-zero exit code and no status line.
@@ -243,17 +259,23 @@ def phase_kernels(state) -> None:
     results = []
     err = {"hash_rows": 0, "permute": 0, "ntt_axis0": 0}
     commons = [data.common for data, _ in state["circuits"].values()]
-    widths = sorted(set().union(*map(kernel_widths, commons)))
-    shapes = sorted(set().union(*map(ntt_shapes, commons)))
+    chunk_commons = [state["square"][0].common] + [c.data.common for c in state["chunks"].values()]
+    # K1 at the main path's LDE rows for the four circuits' widths, and at
+    # each chunk circuit's own LDE rows (2^16, 2^18) for its widths (and
+    # the square child's, 2^5)
+    k1_checks = {(w, n) for w in set().union(*map(kernel_widths, commons))
+                 for n in (lde, 1037)}
+    for c in chunk_commons:
+        k1_checks |= {(w, n) for w in kernel_widths(c) for n in (c.lde_size, 1037)}
+    shapes = sorted(set().union(*map(ntt_shapes, commons + chunk_commons)))
     with Phase("kernels"):
-        for w in widths:
-            for n in (lde, 1037):
-                x = edge_rows(rng, n, w, dev)
-                got = pc.hash_no_pad_rows(x)
-                torch.cuda.synchronize()
-                err["hash_rows"] = max(err["hash_rows"], require_equal(
-                    f"K1 w={w} n={n}", got, pt.hash_no_pad_batch(x)))
-                results.append(f"K1 w={w} n={n}")
+        for w, n in sorted(k1_checks):
+            x = edge_rows(rng, n, w, dev)
+            got = pc.hash_no_pad_rows(x)
+            torch.cuda.synchronize()
+            err["hash_rows"] = max(err["hash_rows"], require_equal(
+                f"K1 w={w} n={n}", got, pt.hash_no_pad_batch(x)))
+            results.append(f"K1 w={w} n={n}")
         left, right = edge_rows(rng, 777, 4, dev), edge_rows(rng, 777, 4, dev)
         err["hash_rows"] = max(err["hash_rows"], require_equal(
             "K1 two_to_one", pc.two_to_one(left, right), pt.two_to_one_batch(left, right)))
@@ -371,7 +393,8 @@ def time_kernels(state) -> list[dict]:
     k1_plain = cuda_ms(lambda: pt.hash_no_pad_batch(rows), iters=2, warmup=1)
     k1_bytes, k1_ops = k1_work(n, w)
     # per warm prove: the zk main path's shapes, and the non-zk ones
-    runs = {"": state["runs"]["wormhole_zk"], "_nonzk": state["runs"]["wormhole_nonzk"]}
+    runs = {"": state["runs"]["wormhole_zk"], "_nonzk": state["runs"]["wormhole_nonzk"],
+            "_agg": state["agg_runs"]["agg_2_1"]}
     k1_prove = {tag: time_k1_per_prove(r["k1_shapes"], rng, dev) for tag, r in runs.items()}
     b = 1 << 18
     states = edge_rows(rng, b, 12, dev)
@@ -396,14 +419,17 @@ def time_kernels(state) -> list[dict]:
             "launches": launches[key], "max_abs_err": state["max_abs_err"][key],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "shape": shape,
-            "launches_by_path": {p: r["launches"][key] for p, r in state["runs"].items()},
+            "launches_by_path": {p: r["launches"][key] for p, r in
+                                 {**state["runs"], **state["agg_runs"]}.items()},
         }
+
+    labels = {"": "zk", "_nonzk": "non-zk", "_agg": "(2, 1) chunk"}
 
     def add_per_prove(record, per_prove):
         for tag, (total, shapes, bound) in per_prove.items():
             record.update({f"prove_ms{tag}": total, f"prove_shapes{tag}": shapes,
                            f"prove_bound_ms{tag}": bound})
-            log(f"{record['name'].split()[0]} per warm {'non-zk' if tag else 'zk'} prove: "
+            log(f"{record['name'].split()[0]} per warm {labels[tag]} prove: "
                 f"{len(shapes)} shapes, {sum(s[-3] for s in shapes)} launches, "
                 f"{total:.4f} ms (bound {bound:.4f} ms)")
 
@@ -451,6 +477,27 @@ def phase_circuit(state) -> None:
     for name, (data, _) in circuits.items():
         log(f"circuit {name}: degree 2^{data.common.degree_bits}, "
             f"{len(data.common.gates)} gate types, zk {data.common.config.zero_knowledge}")
+    build_chunk_circuits(state, configs["nonzk"])
+
+
+def build_chunk_circuits(state, nonzk_config) -> None:
+    """The aggregator's chunk circuits, each built once on the host and
+    timed: branching 1 over the square test circuit, branching 2 over
+    the zk Wormhole."""
+    from qzk_tpu_torch.models.wormhole import aggregator as agg
+    from qzk_tpu_torch.models.wormhole.fixtures import square_circuit
+
+    state["square"] = square_circuit(nonzk_config)
+    children = {"square_chunk": (state["square"][0].common, 1),
+                "agg_2_1": (state["common"], 2)}
+    state["chunks"] = {}
+    for name, (common, branching) in children.items():
+        with Phase(f"chunk circuit {name} (host build)"):
+            chunk = agg.build_chunk_circuit(common, branching)
+        state["chunks"][name] = chunk
+        log(f"chunk circuit {name}: branching {branching} over a 2^{common.degree_bits}-row "
+            f"child, degree 2^{chunk.data.common.degree_bits}, "
+            f"zk {chunk.data.common.config.zero_knowledge}")
 
 
 def prover_of(state, name):
@@ -473,6 +520,13 @@ def prover_of(state, name):
             create_test_inputs().fill_targets(pw, targets)
             return data.prove(pw, device="cuda", timer=timer)
     return prove
+
+
+def require_pin(what: str, proof, pin: str) -> None:
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    if digest != pin:
+        raise AssertionError(f"{what} sha256 {digest} != {pin}")
+    log(f"{what}: sha256 {digest} matches the JAX package's")
 
 
 def drive(state, name) -> None:
@@ -507,18 +561,16 @@ def drive(state, name) -> None:
     for key in KERNELS:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the {name} path")
-    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
-    if digest != pins[name]:
-        raise AssertionError(f"{name} proof sha256 {digest} != {pins[name]}")
-    log(f"prove {name}: proof sha256 {digest} matches the JAX package's")
+    require_pin(f"prove {name}: proof", proof, pins[name])
 
 
-def time_salt_draw(state) -> None:
-    """One zk salt draw, (lde_size, 4), on the card: equal to the CPU's
-    draw, and its time by CUDA events around 10 draws."""
+def time_salt_draw(common) -> None:
+    """One zk salt draw of `common`'s prove, (lde_size, 4), on the card:
+    equal to the CPU's draw, and its time by CUDA events around 10
+    draws."""
     dev = torch.device("cuda")
     _, sub = threefry.split(threefry.prng_key(20261017))
-    shape = (state["common"].lde_size, 4)
+    shape = (common.lde_size, 4)
     got = threefry.random_bits_u64_shr1(sub, shape, dev)
     require_equal(f"salt draw {shape}", got, threefry.random_bits_u64_shr1(sub, shape, "cpu"))
     ms = cuda_ms(lambda: threefry.random_bits_u64_shr1(sub, shape, dev))
@@ -529,7 +581,7 @@ def time_salt_draw(state) -> None:
 def phase_prove(state) -> None:
     state["runs"] = {}
     drive(state, "wormhole_zk")
-    time_salt_draw(state)
+    time_salt_draw(state["common"])
     for name in PATHS[1:]:
         drive(state, name)
     spread = {"wormhole_zk": [], "wormhole_nonzk": []}
@@ -543,6 +595,76 @@ def phase_prove(state) -> None:
                 times.append(time.perf_counter() - t0)
     for name, times in spread.items():
         log(f"prove spread {name}: " + ", ".join(f"{t:.4f}" for t in times) + " s")
+
+
+def prove_chunk_timed(state, name, prove):
+    """prove(timer) once, then once warm with its phases timed by CUDA
+    events and the kernel launches counted from 0; every kernel must
+    have been launched.  Records the run under state["agg_runs"][name]
+    and returns the warm result."""
+    from qzk_tpu_torch.plonk.prover import PhaseTimer
+
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase(f"aggregate {name} (first, includes per-circuit device setup)"):
+        prove(None)
+    cold_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer(cuda_events=True)
+    pc.reset_launches()
+    nc.reset_launches()
+    with Phase(f"aggregate {name} (warm)") as ph:
+        out = prove(timer)
+    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    state["agg_runs"][name] = {
+        "launches": launches, "k1_shapes": Counter(pc.K1_SHAPES),
+        "k3_shapes": Counter(nc.K3_SHAPES),
+    }
+    for phase, ms in timer.results():
+        log(f"  aggregate {name} phase {phase}: {ms / 1e3:.4f} s")
+    log(f"aggregate {name}: {ph.seconds:.3f} s; launches K1 {launches['hash_rows']}, "
+        f"K2 {launches['permute']}, K3 {launches['ntt_axis0']}; peak device memory "
+        f"{cold_peak / 2**30:.3f} GiB first, {peak / 2**30:.3f} GiB warm "
+        f"(torch.cuda.max_memory_allocated), of which {resident / 2**30:.3f} GiB were "
+        f"allocated before (the earlier circuits' contexts and proofs)")
+    for key in KERNELS:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the {name} path")
+    return out
+
+
+def phase_aggregate(state) -> None:
+    """The square chunk proof, then the (2, 1) tree over two zk Wormhole
+    leaves, through the aggregator's entry points on the card."""
+    from qzk_tpu_torch.models.wormhole import aggregator as agg
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    from qzk_tpu_torch.models.wormhole.prover import WormholeProver
+    from qzk_tpu_torch.plonk.witness import PartialWitness
+
+    state["agg_runs"] = {}
+    sq_data, x = state["square"]
+    sq_chunk = state["chunks"]["square_chunk"]
+    pw = PartialWitness()
+    pw.set_target(x, 5)
+    child = sq_data.prove(pw, device="cuda")
+    sq = prove_chunk_timed(state, "square_chunk", lambda timer: agg._prove_chunk(
+        sq_chunk, [child], sq_data.verifier_only, "cuda", timer))
+    require_pin("square chunk proof", sq.proof, wfix.SQUARE_CHUNK_PROOF_SHA256)
+
+    data, targets = state["circuits"]["wormhole_zk"]
+    with Phase("prove wormhole_zk leaf with exit account 0x05"):
+        leaf = WormholeProver(data.common.config, _circuit_data=data.prover_data(),
+                              _targets=targets, device="cuda")
+        leaf = leaf.commit(wfix.aggregation_leaf_inputs()[1]).prove()
+    leaves = [state["runs"]["wormhole_zk"]["proof"], leaf]
+    tree = agg.TreeAggregationConfig.new(2, 1)
+    root = prove_chunk_timed(state, "agg_2_1", lambda timer: agg.aggregate_to_tree(
+        leaves, data.common, data.verifier_only, tree, device="cuda", timer=timer))
+    require_pin("(2, 1) aggregation root", root.proof, wfix.AGG_2_1_ZK_ROOT_SHA256)
+    time_salt_draw(root.circuit_data.common)
+    state["agg_runs"]["square_chunk"]["result"] = sq
+    state["agg_runs"]["agg_2_1"]["result"] = root
 
 
 def rejects(verify, proof) -> bool:
@@ -589,10 +711,33 @@ def phase_verify(state) -> None:
             "non-zk tampered public input": rejects(
                 verifier_of(state, "wormhole_nonzk"), bad_nonzk),
         }
+        checks["(2, 1) root tampered public input"] = verify_aggregation(state)
     for what, ok in checks.items():
         if not ok:
             raise AssertionError(f"the verifier accepted a proof with a {what}")
-    log(f"verify: {', '.join(state['runs'])} proofs verify; rejected: {', '.join(checks)}")
+    log(f"verify: {', '.join(state['runs'])} proofs, the square chunk proof and the (2, 1) "
+        f"root verify; the root's leaves parse back to exit accounts 0x04..., 0x05...; "
+        f"rejected: {', '.join(checks)}")
+
+
+def verify_aggregation(state) -> bool:
+    """Verify the square chunk proof and the (2, 1) root on the host,
+    parse the two leaves back from the root; True if the root with a
+    tampered public input is rejected."""
+    import copy
+
+    from qzk_tpu_torch.models.wormhole.inputs import PublicCircuitInputs
+
+    for run in state["agg_runs"].values():
+        run["result"].circuit_data.verify(run["result"].proof)
+    root = state["agg_runs"]["agg_2_1"]["result"]
+    parsed = PublicCircuitInputs.try_from_aggregated(root.proof, 16, 2)
+    exits = [bytes(p.exit_account) for p in parsed]
+    if exits != [bytes([4] * 32), bytes([5] * 32)]:
+        raise AssertionError(f"the root's leaves carry exit accounts {exits}")
+    bad = copy.deepcopy(root.proof)
+    bad.public_inputs[0] = np.uint64((int(bad.public_inputs[0]) + 1) % gl.P)
+    return rejects(root.circuit_data.verify, bad)
 
 
 def phase_report(state) -> None:
@@ -612,12 +757,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # Keep every context the run builds resident (the six circuits it
+    # proves and the square child), so that the warm proves of the
+    # earlier paths stay warm; benches/aggregate.py's (2, 3) tree runs
+    # the default limit's eviction.
+    os.environ["QZK_CTX_LIMIT"] = "8"
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     state: dict = {}
     t0 = time.perf_counter()
     for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
-                  phase_verify, phase_report):
+                  phase_aggregate, phase_verify, phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"ok": True, "device": {

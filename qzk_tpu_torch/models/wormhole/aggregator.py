@@ -1,0 +1,321 @@
+"""Recursive proof-tree aggregation (parity with the reference's
+aggregator crate: reference wormhole/aggregator/src/
+{aggregator.rs:13-93, circuits/tree.rs:24-143, util.rs:11-29}), the
+JAX package's qzk_tpu/models/wormhole/aggregator.py on the port.
+
+Semantics match the reference: proofs are buffered up to
+`num_leaf_proofs`, padded with a dummy proof, then aggregated level by
+level — each chunk of `tree_branching_factor` proofs is verified inside
+a fresh recursion circuit whose public inputs are the concatenation of
+the children's public inputs, so the root proof carries
+num_leaves x 16 felts parsed by PublicCircuitInputs.try_from_aggregated.
+
+One deliberate improvement over the reference (SURVEY.md §7 pitfalls):
+the reference rebuilds the recursion circuit for EVERY chunk at EVERY
+level (tree.rs:106-143); we build ONE circuit per (level shape) and
+reuse it for all chunks of that level — identical proof/PI semantics,
+k× less build work.
+
+Chunk proves run on the device the caller names: CUDA unless it passes
+device="cpu".  The JAX package also keeps chunk circuits in a disk cache
+(QZK_CIRCUIT_CACHE_DIR); the port does not yet, since that needs the
+circuit serialization it has not ported.  A build is seconds of host
+Python: 1.8-2.2 s for the branching-1 chunk over the square test circuit
+(2^13 rows) and 8.3-9.9 s for the branching-2 chunk over the zk Wormhole
+(2^15 rows), on the host of an NVIDIA H100 80GB HBM3 machine (700 W
+limit; chip_smoke.py, PERF.md).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ...plonk import recursion as rec
+from ...plonk.builder import CircuitBuilder
+from ...plonk.circuit_data import CircuitData, VerifierCircuitData
+from ...plonk.config import CircuitConfig
+from ...plonk.proof import ProofWithPublicInputs
+from ...plonk.witness import PartialWitness
+from ...utils.device import resolve_device
+from ..wormhole.inputs import PublicCircuitInputs
+
+DEFAULT_TREE_BRANCHING_FACTOR = 2
+DEFAULT_TREE_DEPTH = 3
+
+
+@dataclass(frozen=True)
+class TreeAggregationConfig:
+    num_leaf_proofs: int
+    tree_branching_factor: int
+    tree_depth: int
+
+    @classmethod
+    def new(cls, tree_branching_factor: int, tree_depth: int):
+        return cls(
+            num_leaf_proofs=tree_branching_factor**tree_depth,
+            tree_branching_factor=tree_branching_factor,
+            tree_depth=tree_depth,
+        )
+
+    @classmethod
+    def default(cls):
+        return cls.new(DEFAULT_TREE_BRANCHING_FACTOR, DEFAULT_TREE_DEPTH)
+
+
+@dataclass
+class AggregatedProof:
+    proof: ProofWithPublicInputs
+    circuit_data: CircuitData
+
+
+@dataclass
+class _ChunkCircuit:
+    data: CircuitData
+    verifier_data_target: rec.VerifierCircuitTarget
+    proof_targets: list  # branching ProofWithPisTargets
+
+
+# (circuit_digest bytes, branching) -> _ChunkCircuit.  The recursion
+# circuit depends only on the child-proof shape (common data) and the
+# chunk size, so a proving service aggregating many batches builds each
+# shape once per process (the reference rebuilds per chunk per level —
+# tree.rs:106-143).
+_chunk_circuit_cache: dict = {}
+
+
+def build_chunk_circuit(common, branching: int) -> _ChunkCircuit:
+    """The recursion circuit verifying `branching` child proofs and
+    re-exporting their public inputs (tree.rs:106-127).  Memoized in
+    memory, keyed by (child circuit digest, branching)."""
+    digest = bytes(np.asarray(common.circuit_digest).tobytes())
+    key = (digest, branching)
+    cached = _chunk_circuit_cache.get(key)
+    if cached is not None:
+        return cached
+    circuit = _build_chunk_circuit_uncached(common, branching)
+    _chunk_circuit_cache[key] = circuit
+    return circuit
+
+
+def _build_chunk_circuit_uncached(common, branching: int) -> _ChunkCircuit:
+    builder = CircuitBuilder(common.config)
+    vd_t = rec.add_virtual_verifier_data(
+        builder, common.config.fri_config.cap_height
+    )
+    proof_ts = []
+    for _ in range(branching):
+        pt = rec.add_virtual_proof_with_pis(builder, common)
+        rec.verify_proof_circuit(builder, pt, vd_t, common)
+        builder.register_public_inputs(pt.public_inputs)
+        proof_ts.append(pt)
+    data = builder.build()
+    return _ChunkCircuit(
+        data=data, verifier_data_target=vd_t, proof_targets=proof_ts
+    )
+
+
+def _prove_chunk(
+    circuit: _ChunkCircuit, chunk: list, verifier_only, device=None, timer=None
+) -> AggregatedProof:
+    """Fill the chunk circuit's witness from the child proofs and prove
+    it on `device`, with `timer` (a plonk.prover.PhaseTimer) marking the
+    prove's phases when given."""
+    pw = PartialWitness()
+    rec.set_verifier_data_target(
+        pw, circuit.verifier_data_target, verifier_only
+    )
+    assert len(chunk) == len(circuit.proof_targets)
+    for pt, proof in zip(circuit.proof_targets, chunk):
+        rec.set_proof_with_pis_target(pw, pt, proof)
+    proof = circuit.data.prove(pw, device=device, timer=timer)
+    return AggregatedProof(proof=proof, circuit_data=circuit.data)
+
+
+def _agg_workers(n_chunks: int, device: torch.device) -> int:
+    """Concurrent chunk proves per level — the reference fans chunks
+    out via rayon `par_chunks` with `multithread` on by default
+    (tree.rs:79-103, aggregator/Cargo.toml).  Here a chunk prove is one
+    device pipeline, so concurrency = one worker per card (per-device
+    prover contexts, see plonk.device_prover.get_context); with one card
+    proving is serialized and we stay sequential.  On the CPU, 1: the
+    chunk proves would share the host's cores.  QZK_AGG_WORKERS forces a
+    count."""
+    flag = os.environ.get("QZK_AGG_WORKERS")
+    if flag:
+        return max(1, min(int(flag), n_chunks))
+    if device.type == "cpu":
+        return 1
+    return max(1, min(torch.cuda.device_count(), n_chunks))
+
+
+def _chunk_devices(n_chunks: int, device: torch.device) -> list:
+    """The device of each chunk's prove: the chunks go round the cards
+    in order on CUDA, all to the CPU on the CPU."""
+    if device.type == "cpu":
+        return [device] * n_chunks
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(n_chunks)]
+
+
+def aggregate_level(
+    proofs: list, common, verifier_only, config: TreeAggregationConfig,
+    device=None, timer=None,
+) -> list:
+    """One tree level: chunked recursion proofs (tree.rs:79-103).
+    Builds one circuit per chunk size occurring at this level; chunks
+    prove concurrently across cards when more than one is attached, each
+    on the card it is given.  `timer` marks the phases of each chunk
+    prove in turn, and needs the sequential path."""
+    dev = resolve_device(device)
+    b = config.tree_branching_factor
+    chunks = [proofs[i : i + b] for i in range(0, len(proofs), b)]
+    circuits: dict[int, _ChunkCircuit] = {}
+    for chunk in chunks:
+        size = len(chunk)
+        if size not in circuits:
+            circuits[size] = build_chunk_circuit(common, size)
+    workers = _agg_workers(len(chunks), dev)
+    if workers <= 1:
+        return [
+            _prove_chunk(circuits[len(c)], c, verifier_only, dev, timer)
+            for c in chunks
+        ]
+    if timer is not None:
+        raise ValueError("a PhaseTimer times chunk proves one at a time")
+    devices = _chunk_devices(len(chunks), dev)
+
+    def prove_on(i_chunk):
+        i, chunk = i_chunk
+        return _prove_chunk(circuits[len(chunk)], chunk, verifier_only, devices[i])
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(prove_on, enumerate(chunks)))
+
+
+def aggregate_to_tree(
+    leaf_proofs: list, common, verifier_only, config: TreeAggregationConfig,
+    device=None, timer=None,
+) -> AggregatedProof:
+    """tree.rs:55-77: aggregate level by level until one proof remains."""
+    dev = resolve_device(device)
+    proofs = aggregate_level(leaf_proofs, common, verifier_only, config, dev, timer)
+    while len(proofs) > 1:
+        level_common = proofs[0].circuit_data.common
+        level_vo = proofs[0].circuit_data.verifier_only
+        to_aggregate = [p.proof for p in proofs]
+        proofs = aggregate_level(
+            to_aggregate, level_common, level_vo, config, dev, timer
+        )
+    assert len(proofs) == 1
+    return proofs[0]
+
+
+def pad_with_dummy_proofs(
+    proofs: list, proof_len: int, dummy_proof: ProofWithPublicInputs | None
+) -> list:
+    """util.rs:11-29 — the reference embeds a pre-generated proof of the
+    default test inputs; we take it from the aggregator's dummy-proof
+    source (generated-bins/ or explicit)."""
+    if len(proofs) > proof_len:
+        raise ValueError(
+            "proofs to aggregate was more than the maximum allowed"
+        )
+    if len(proofs) < proof_len:
+        if dummy_proof is None:
+            raise ValueError(
+                "proof buffer not full and no dummy proof available "
+                "(generate one with tools/export_dummy_proof.py)"
+            )
+        proofs = proofs + [dummy_proof] * (proof_len - len(proofs))
+    return proofs
+
+
+class WormholeProofAggregator:
+    """aggregator.rs:13-93 session API.  Aggregates on `device`: CUDA
+    unless the caller passes device="cpu"."""
+
+    def __init__(
+        self,
+        leaf_circuit_data: VerifierCircuitData,
+        config: TreeAggregationConfig | None = None,
+        dummy_proof: ProofWithPublicInputs | None = None,
+        device=None,
+    ):
+        self.leaf_circuit_data = leaf_circuit_data
+        self.config = config or TreeAggregationConfig.default()
+        self.proofs_buffer: list | None = []
+        self._dummy_proof = dummy_proof
+        self.device = device
+
+    @classmethod
+    def new(cls, verifier_circuit_data: VerifierCircuitData, device=None):
+        return cls(verifier_circuit_data, device=device)
+
+    @classmethod
+    def from_circuit_config(cls, circuit_config: CircuitConfig, device=None):
+        from .verifier import WormholeVerifier
+
+        verifier = WormholeVerifier.new(circuit_config)
+        return cls(verifier.circuit_data, device=device)
+
+    @classmethod
+    def default(cls, device=None):
+        return cls.from_circuit_config(
+            CircuitConfig.standard_recursion_zk_config(), device=device
+        )
+
+    def with_config(self, config: TreeAggregationConfig):
+        self.config = config
+        return self
+
+    def push_proof(self, proof: ProofWithPublicInputs) -> None:
+        if self.proofs_buffer is not None:
+            if len(self.proofs_buffer) >= self.config.num_leaf_proofs:
+                raise ValueError(
+                    "tried to add proof when proof buffer is full"
+                )
+            self.proofs_buffer.append(proof)
+        else:
+            self.proofs_buffer = [proof]
+
+    def extract_leaf_public_inputs(self, aggregated_proof) -> list:
+        leaf_pi_len = self.leaf_circuit_data.common.num_public_inputs
+        return PublicCircuitInputs.try_from_aggregated(
+            aggregated_proof, leaf_pi_len, self.config.num_leaf_proofs
+        )
+
+    def _load_dummy_proof(self):
+        if self._dummy_proof is not None:
+            return self._dummy_proof
+        zk = self.leaf_circuit_data.common.config.zero_knowledge
+        name = "dummy_proof_zk.bin" if zk else "dummy_proof.bin"
+        path = Path("generated-bins") / name
+        if path.exists():
+            return ProofWithPublicInputs.from_bytes(
+                path.read_bytes(), self.leaf_circuit_data.common
+            )
+        return None
+
+    def aggregate(self, timer=None) -> AggregatedProof:
+        if self.proofs_buffer is None:
+            raise ValueError("there are no proofs to aggregate")
+        dev = resolve_device(self.device)
+        proofs = self.proofs_buffer
+        self.proofs_buffer = None
+        padded = pad_with_dummy_proofs(
+            proofs, self.config.num_leaf_proofs, self._load_dummy_proof()
+        )
+        return aggregate_to_tree(
+            padded,
+            self.leaf_circuit_data.common,
+            self.leaf_circuit_data.verifier_only,
+            self.config,
+            dev,
+            timer,
+        )

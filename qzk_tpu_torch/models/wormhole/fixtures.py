@@ -9,7 +9,18 @@ sha256 of the proof bytes that the JAX package's prover gives for
 ``CircuitConfig.standard_recursion_config()`` and
 ``standard_recursion_zk_config()``; tests/test_torch_wormhole.py and
 tests/test_torch_zk.py pin them against qzk_tpu.
+
+The aggregation pins, each the sha256 of the JAX package's proof:
+``SQUARE_CHUNK_PROOF_SHA256``, of the branching-1 chunk proof
+(``build_chunk_circuit(square.common, 1)``) over the square circuit's
+proof at x = 5, under ``standard_recursion_config()``
+(tests/test_torch_recursion.py); ``AGG_2_1_ZK_ROOT_SHA256``, of the root
+of ``aggregate_to_tree`` over the two zk Wormhole proofs of
+``aggregation_leaf_inputs()`` as a (2, 1) tree
+(tests/test_torch_aggregate_pin.py).
 """
+
+import dataclasses
 
 from .inputs import (
     CircuitInputs,
@@ -26,6 +37,12 @@ WORMHOLE_NONZK_PROOF_SHA256 = (
 )
 WORMHOLE_ZK_PROOF_SHA256 = (
     "2a1e822d7e5bb966976f19de117a9b82f5ae47c5465705216c526f48cee518f9"
+)
+SQUARE_CHUNK_PROOF_SHA256 = (
+    "f254d26c3562d7e9cf52088969392f35844f12f34fb22e223a02a8966d58473c"
+)
+AGG_2_1_ZK_ROOT_SHA256 = (
+    "a64855c51ea85e79cab855cf46c990c9233dc474bdbcaf0e5b705fa14496cfec"
 )
 
 DEFAULT_SECRET = (
@@ -149,3 +166,30 @@ def synthetic_circuit_inputs() -> CircuitInputs:
             unspendable_account=_default_unspendable_digest(),
         ),
     )
+
+
+def aggregation_leaf_inputs() -> list:
+    """The inputs of the two leaves that the aggregation pins prove:
+    synthetic_circuit_inputs() with exit accounts [4] * 32 and [5] * 32
+    (the first is synthetic_circuit_inputs() itself)."""
+    base = synthetic_circuit_inputs()
+    return [
+        dataclasses.replace(
+            base,
+            public=dataclasses.replace(
+                base.public, exit_account=codec.BytesDigest(bytes([e] * 32))
+            ),
+        )
+        for e in (0x04, 0x05)
+    ]
+
+
+def square_circuit(config):
+    """(CircuitData, x) of the square test circuit under `config`: one
+    virtual target x and the public input x * x."""
+    from ...plonk.builder import CircuitBuilder
+
+    builder = CircuitBuilder(config)
+    x = builder.add_virtual_target()
+    builder.register_public_input(builder.mul(x, x))
+    return builder.build(), x

@@ -28,6 +28,8 @@ none), which the FRI batches skip and the query openings carry.
 
 from __future__ import annotations
 
+import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -357,15 +359,78 @@ class DeviceProverContext:
         return found
 
 
-def get_context(common, prover_only, device: torch.device) -> DeviceProverContext:
-    """The circuit's context on `device`, built at first use."""
+# LRU over live device contexts: each context pins its circuit's
+# preprocessed LDE, tree and derived arrays in device memory, and an
+# aggregation tree proves one more circuit a level.
+# Keeping at most QZK_CTX_LIMIT contexts resident turns that into
+# eviction and a rebuild.  Entries: (id(ctxs), key, ctxs, common) in
+# least-recent-first order; ctxs is the owning prover_only's
+# _torch_ctxs.
+_CTX_LRU: list = []
+_CTX_LOCK = threading.Lock()
+
+
+def _ctx_limit() -> int:
+    try:
+        return max(1, int(os.environ.get("QZK_CTX_LIMIT", "3")))
+    except ValueError:
+        return 3
+
+
+def _lru_touch(ctxs, key, common) -> None:
+    entry = (id(ctxs), key)
+    for i, (eid, ekey, _, _) in enumerate(_CTX_LRU):
+        if (eid, ekey) == entry:
+            _CTX_LRU.append(_CTX_LRU.pop(i))
+            return
+    _CTX_LRU.append((id(ctxs), key, ctxs, common))
+
+
+def _evict_down_to(n_keep: int) -> None:
+    while len(_CTX_LRU) > n_keep:
+        _, key, ctxs, _ = _CTX_LRU.pop(0)
+        ctxs.pop(key, None)  # drop the refs; torch frees the memory
+
+
+def context_device(device) -> torch.device:
+    """`device` with its index: a bare "cuda" is the current card, so
+    that "cuda" and "cuda:0" share one context."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def get_context(common, prover_only, device) -> DeviceProverContext:
+    """The circuit's context on `device`, built at first use.
+
+    Contexts are keyed by the device with its index, so that concurrent
+    chunk proves on several cards (the aggregator's fan-out) each get
+    arrays on their own card.  A process-wide LRU bounds the resident
+    contexts (see _CTX_LRU above); when building one runs out of device
+    memory, every other context is evicted and the build retried once on
+    the same device."""
+    dev = context_device(device)
+    key = str(dev)
     ctxs = getattr(prover_only, "_torch_ctxs", None)
     if ctxs is None:
         ctxs = prover_only._torch_ctxs = {}
-    key = str(device)
-    if key not in ctxs:
-        ctxs[key] = DeviceProverContext(common, prover_only, device)
-    return ctxs[key]
+    ctx = ctxs.get(key)
+    if ctx is None:
+        with _CTX_LOCK:
+            _evict_down_to(_ctx_limit() - 1)
+        try:
+            ctx = DeviceProverContext(common, prover_only, dev)
+        except torch.cuda.OutOfMemoryError:
+            pass  # retried below, once the handler has let go of the failed build
+        if ctx is None:
+            with _CTX_LOCK:
+                _evict_down_to(0)
+            ctx = DeviceProverContext(common, prover_only, dev)
+        ctxs[key] = ctx
+    with _CTX_LOCK:
+        _lru_touch(ctxs, key, common)
+    return ctx
 
 
 def _assemble_query_rounds(groups, arities, oracles, layer_values, layer_trees, indices):

@@ -37,6 +37,9 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.models.voting",
         "qzk_tpu_torch.models.voting.circuit",
         "qzk_tpu_torch.models.voting.fixtures",
+        "qzk_tpu_torch.plonk.recursion",
+        "qzk_tpu_torch.models.wormhole.aggregator",
+        "qzk_tpu_torch.benches.aggregate",
     } <= set(_modules())
     code = textwrap.dedent(
         f"""
