@@ -34,6 +34,20 @@ Phases, in order:
            the JAX package's, and the peak device memory of each; then
            one zk salt draw at the chunk prove's shape, timed and held
            to the CPU's draw;
+  artifacts  the resume paths: write the non-zk Wormhole's common.bin,
+           verifier.bin and prover.bin (generate_circuit_binaries), hold
+           the first two to their sha256 pins, and time reading and
+           writing prover.bin; prove from the files
+           (WormholeProver.new_from_files) on the card, with the kernel
+           launches counted from 0, the proof held to the non-zk pin and
+           verified by WormholeVerifier.new_from_files; write the proved
+           (2, 1) chunk circuit through the disk cache into a fresh
+           directory, reload it through build_chunk_circuit with no host
+           build, check that the reload carries no prover context, and
+           aggregate the two leaves with it, with the kernel launches
+           counted from 0 and the root held to its pin; write the zk
+           Wormhole proof in the qp-plonky2 byte format, hold it to its
+           pin, and read it back;
   verify   verify every proof on the host; reject the zk Wormhole proof
            with a tampered public input and with a flipped salt word in
            a wires query opening, and the non-zk one with a tampered
@@ -420,7 +434,8 @@ def time_kernels(state) -> list[dict]:
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "shape": shape,
             "launches_by_path": {p: r["launches"][key] for p, r in
-                                 {**state["runs"], **state["agg_runs"]}.items()},
+                                 {**state["runs"], **state["agg_runs"],
+                                  **state["artifact_runs"]}.items()},
         }
 
     labels = {"": "zk", "_nonzk": "non-zk", "_agg": "(2, 1) chunk"}
@@ -529,6 +544,25 @@ def require_pin(what: str, proof, pin: str) -> None:
     log(f"{what}: sha256 {digest} matches the JAX package's")
 
 
+def counted(path: str, fn):
+    """fn() with the kernel launches counted from 0; every kernel must
+    have been launched on `path`.  Returns fn's result and the counts."""
+    pc.reset_launches()
+    nc.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+    for key in KERNELS:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the {path} path")
+    return out, launches
+
+
+def launch_text(launches) -> str:
+    return (f"launches K1 {launches['hash_rows']}, K2 {launches['permute']}, "
+            f"K3 {launches['ntt_axis0']}")
+
+
 def drive(state, name) -> None:
     """Prove circuit `name` once, then once warm with its phases timed
     and the kernel launches counted from 0; every kernel must have been
@@ -545,22 +579,15 @@ def drive(state, name) -> None:
     with Phase(f"prove {name} (first, includes per-circuit device setup)"):
         prove()
     timer = PhaseTimer(cuda_events=True)
-    pc.reset_launches()
-    nc.reset_launches()
     with Phase(f"prove {name} (warm)") as ph:
-        proof = prove(timer)
-    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+        proof, launches = counted(name, lambda: prove(timer))
     state["runs"][name] = {
-        "proof": proof, "prove": prove, "launches": launches,
+        "proof": proof, "prove": prove, "launches": launches, "seconds": ph.seconds,
         "k1_shapes": Counter(pc.K1_SHAPES), "k3_shapes": Counter(nc.K3_SHAPES),
     }
     for phase, ms in timer.results():
         log(f"  prove {name} phase {phase}: {ms / 1e3:.4f} s")
-    log(f"prove {name}: {ph.seconds:.3f} s; launches K1 {launches['hash_rows']}, "
-        f"K2 {launches['permute']}, K3 {launches['ntt_axis0']}")
-    for key in KERNELS:
-        if launches[key] <= 0:
-            raise AssertionError(f"kernel {key} was not launched on the {name} path")
+    log(f"prove {name}: {ph.seconds:.3f} s; {launch_text(launches)}")
     require_pin(f"prove {name}: proof", proof, pins[name])
 
 
@@ -611,11 +638,8 @@ def prove_chunk_timed(state, name, prove):
     cold_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer(cuda_events=True)
-    pc.reset_launches()
-    nc.reset_launches()
     with Phase(f"aggregate {name} (warm)") as ph:
-        out = prove(timer)
-    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+        out, launches = counted(name, lambda: prove(timer))
     peak = torch.cuda.max_memory_allocated()
     state["agg_runs"][name] = {
         "launches": launches, "k1_shapes": Counter(pc.K1_SHAPES),
@@ -623,14 +647,10 @@ def prove_chunk_timed(state, name, prove):
     }
     for phase, ms in timer.results():
         log(f"  aggregate {name} phase {phase}: {ms / 1e3:.4f} s")
-    log(f"aggregate {name}: {ph.seconds:.3f} s; launches K1 {launches['hash_rows']}, "
-        f"K2 {launches['permute']}, K3 {launches['ntt_axis0']}; peak device memory "
+    log(f"aggregate {name}: {ph.seconds:.3f} s; {launch_text(launches)}; peak device memory "
         f"{cold_peak / 2**30:.3f} GiB first, {peak / 2**30:.3f} GiB warm "
         f"(torch.cuda.max_memory_allocated), of which {resident / 2**30:.3f} GiB were "
         f"allocated before (the earlier circuits' contexts and proofs)")
-    for key in KERNELS:
-        if launches[key] <= 0:
-            raise AssertionError(f"kernel {key} was not launched on the {name} path")
     return out
 
 
@@ -658,6 +678,7 @@ def phase_aggregate(state) -> None:
                               _targets=targets, device="cuda")
         leaf = leaf.commit(wfix.aggregation_leaf_inputs()[1]).prove()
     leaves = [state["runs"]["wormhole_zk"]["proof"], leaf]
+    state["leaves"] = leaves
     tree = agg.TreeAggregationConfig.new(2, 1)
     root = prove_chunk_timed(state, "agg_2_1", lambda timer: agg.aggregate_to_tree(
         leaves, data.common, data.verifier_only, tree, device="cuda", timer=timer))
@@ -665,6 +686,137 @@ def phase_aggregate(state) -> None:
     time_salt_draw(root.circuit_data.common)
     state["agg_runs"]["square_chunk"]["result"] = sq
     state["agg_runs"]["agg_2_1"]["result"] = root
+
+
+def require_sha256(what: str, blob: bytes, pin: str) -> None:
+    digest = hashlib.sha256(blob).hexdigest()
+    if digest != pin:
+        raise AssertionError(f"{what} sha256 {digest} != {pin}")
+    log(f"{what}: {len(blob)} bytes, sha256 {digest} matches the JAX package's")
+
+
+def phase_artifacts(state) -> None:
+    """The artifact layer: resume a prover and a verifier from files,
+    an aggregation from the chunk circuit's disk cache, and the zk proof
+    in the qp-plonky2 byte format."""
+    import tempfile
+    from pathlib import Path
+
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    from qzk_tpu_torch.models.wormhole.circuit_builder import generate_circuit_binaries
+    from qzk_tpu_torch.models.wormhole.prover import WormholeProver
+    from qzk_tpu_torch.models.wormhole.verifier import WormholeVerifier
+    from qzk_tpu_torch.utils import serialization as ser
+
+    state["artifact_runs"] = {}
+    with Phase("artifacts"), tempfile.TemporaryDirectory(prefix="qzk_artifacts_") as tmp:
+        t0 = time.perf_counter()
+        paths = generate_circuit_binaries(Path(tmp) / "bins", include_prover_data=True)
+        log(f"artifacts: generate_circuit_binaries (build and write): "
+            f"{time.perf_counter() - t0:.3f} s")
+        require_sha256("common.bin", paths["common"].read_bytes(), wfix.WORMHOLE_COMMON_BIN_SHA256)
+        require_sha256("verifier.bin", paths["verifier"].read_bytes(),
+                       wfix.WORMHOLE_VERIFIER_BIN_SHA256)
+        t0 = time.perf_counter()
+        prover_only = ser.prover_only_from_bytes(paths["prover"].read_bytes())
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (Path(tmp) / "prover_again.bin").write_bytes(ser.prover_only_to_bytes(prover_only))
+        write_s = time.perf_counter() - t0
+        log(f"artifacts: prover.bin {paths['prover'].stat().st_size} bytes; read and "
+            f"unpickled in {read_s:.3f} s, pickled and written again in {write_s:.3f} s")
+        del prover_only
+
+        def prove_from_files():
+            prover = WormholeProver.new_from_files(paths["prover"], paths["common"],
+                                                   device="cuda")
+            return prover.commit(wfix.synthetic_circuit_inputs()).prove()
+
+        with Phase("artifacts: prove from files (first, includes the read and the "
+                   "per-circuit device setup)") as ph:
+            proof, launches = counted("wormhole_from_files", prove_from_files)
+        state["artifact_runs"]["wormhole_from_files"] = {"launches": launches}
+        log(f"artifacts: the first from-files prove {ph.seconds:.3f} s against the warm "
+            f"non-zk prove {state['runs']['wormhole_nonzk']['seconds']:.3f} s; "
+            f"{launch_text(launches)}")
+        require_pin("artifacts: from-files proof", proof, wfix.WORMHOLE_NONZK_PROOF_SHA256)
+        WormholeVerifier.new_from_files(paths["verifier"], paths["common"]).verify(proof)
+        log("artifacts: WormholeVerifier.new_from_files accepts the from-files proof")
+
+        resume_chunk_from_disk(state, Path(tmp) / "chunks")
+        write_plonky2_proof(state)
+
+
+def resume_chunk_from_disk(state, cache_dir) -> None:
+    """Write the proved (2, 1) chunk circuit through the disk cache,
+    reload it with no host build, and aggregate the two leaves with it."""
+    from qzk_tpu_torch.models.wormhole import aggregator as agg
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+
+    chunk = state["chunks"]["agg_2_1"]
+    if not getattr(chunk.data.prover_only, "_torch_ctxs", None):
+        raise AssertionError("the (2, 1) chunk circuit holds no prover context to leave out")
+    common = state["common"]
+    digest = bytes(np.asarray(common.circuit_digest).tobytes())
+    os.environ["QZK_CIRCUIT_CACHE_DIR"] = str(cache_dir)
+    builds = []
+    real_build = agg._build_chunk_circuit_uncached
+    try:
+        path = agg._chunk_cache_path(digest, 2)
+        t0 = time.perf_counter()
+        nbytes = agg._write_chunk_cache(path, chunk)
+        write_s = time.perf_counter() - t0
+        agg._chunk_circuit_cache.clear()
+        agg._build_chunk_circuit_uncached = lambda *a: builds.append(a) or real_build(*a)
+        t0 = time.perf_counter()
+        loaded = agg.build_chunk_circuit(common, 2)
+        load_s = time.perf_counter() - t0
+    finally:
+        agg._build_chunk_circuit_uncached = real_build
+        os.environ["QZK_CIRCUIT_CACHE_DIR"] = ""
+    if builds or loaded is chunk:
+        raise AssertionError("the chunk circuit was built again, not loaded from the disk cache")
+    if hasattr(loaded.data.prover_only, "_torch_ctxs"):
+        raise AssertionError("the chunk-cache blob carries the prover contexts")
+    log(f"artifacts: chunk circuit blob {path.name}: {nbytes} bytes, written in "
+        f"{write_s:.3f} s, loaded in {load_s:.3f} s (no host build; the blob holds no "
+        f"prover context)")
+    data = state["circuits"]["wormhole_zk"][0]
+    tree = agg.TreeAggregationConfig.new(2, 1)
+    with Phase("artifacts: (2, 1) aggregation with the reloaded chunk circuit (first, "
+               "includes the per-circuit device setup)"):
+        root, launches = counted("agg_2_1_from_disk", lambda: agg.aggregate_to_tree(
+            state["leaves"], data.common, data.verifier_only, tree, device="cuda"))
+    state["artifact_runs"]["agg_2_1_from_disk"] = {"launches": launches}
+    log(f"artifacts: (2, 1) aggregation with the reloaded chunk circuit: "
+        f"{launch_text(launches)}")
+    require_pin("artifacts: (2, 1) root from the reloaded chunk circuit", root.proof,
+                wfix.AGG_2_1_ZK_ROOT_SHA256)
+
+
+def write_plonky2_proof(state) -> None:
+    """The card's zk Wormhole proof in the qp-plonky2 byte format, held
+    to its pin and read back."""
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    from qzk_tpu_torch.utils import plonky2_compat as p2c
+    from qzk_tpu_torch.utils import plonky2_write as p2w
+
+    common = state["common"]
+    proof = state["runs"]["wormhole_zk"]["proof"]
+    p2_common = p2c.read_common(p2w.write_common(p2w.common_to_p2(common)))
+    p2_proof = p2w.proof_to_p2(proof, common)
+    blob = p2w.write_proof(p2_proof, p2_common)
+    require_sha256("artifacts: zk proof in the plonky2 format", blob,
+                   wfix.WORMHOLE_ZK_P2_PROOF_SHA256)
+    back = p2c.read_proof(blob, p2_common)
+    same = (np.array_equal(back.public_inputs, p2_proof.public_inputs)
+            and np.array_equal(back.wires_cap, p2_proof.wires_cap)
+            and np.array_equal(back.fri.final_poly, p2_proof.fri.final_poly)
+            and back.fri.pow_witness == p2_proof.fri.pow_witness
+            and p2w.write_proof(back, p2_common) == blob)
+    if not same:
+        raise AssertionError("the plonky2-format proof does not read back to the written one")
+    log("artifacts: read_proof gives the written proof back")
 
 
 def rejects(verify, proof) -> bool:
@@ -760,14 +912,18 @@ def main() -> int:
     # Keep every context the run builds resident (the six circuits it
     # proves and the square child), so that the warm proves of the
     # earlier paths stay warm; benches/aggregate.py's (2, 3) tree runs
-    # the default limit's eviction.
+    # the default limit's eviction.  The artifacts phase, after every
+    # warm timing, adds two contexts and so evicts the least recent.
     os.environ["QZK_CTX_LIMIT"] = "8"
+    # No chunk-circuit disk cache but the artifacts phase's own, in a
+    # temporary directory: the checkout stays as it was.
+    os.environ["QZK_CIRCUIT_CACHE_DIR"] = ""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     state: dict = {}
     t0 = time.perf_counter()
     for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
-                  phase_aggregate, phase_verify, phase_report):
+                  phase_aggregate, phase_artifacts, phase_verify, phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,19 @@ padded with the aggregator's dummy proof (generated-bins/, relative to
 the working directory: run it from the repository's root), through
 ``WormholeProofAggregator(...).with_config(...)``.
 
+Chunk circuits go through the aggregator's disk cache in
+QZK_CIRCUIT_CACHE_DIR when it is set (``""``: no disk cache), else in a
+fresh temporary directory, removed at the end.  So two runs that share
+one directory show a cold tree without, then with, the cache.
+
 Per grid point it prints two JSON lines.  ``aggregate_proofs_{b}_{d}``:
-the cold seconds (the host build of each level's chunk circuit that an
-earlier grid point has not built, timed apart as ``chunk_build_s``, and
-the first aggregation, which sets up each chunk circuit's context on the
-card), the warm seconds (an immediate re-aggregation, which must give
+the cold seconds (each level's chunk circuit that an earlier grid point
+has not made: built on the host, and written to the cache, timed as
+``chunk_build_s``, or loaded from the cache, timed as
+``chunk_cache_load_s``, with the blobs' bytes as ``chunk_cache_bytes``
+and each level's source in ``chunk_sources``; then the first
+aggregation, which sets up each chunk circuit's context on the card),
+the warm seconds (an immediate re-aggregation, which must give
 the same root bytes), the degree bits of each level's chunk circuit,
 the chunk count, the peak of ``torch.cuda.max_memory_allocated`` over
 both aggregations, the degree bits of the prover contexts left resident
@@ -32,6 +40,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -52,18 +62,33 @@ def _parse_point(text: str) -> tuple[int, int]:
     return b, d
 
 
-def chunk_levels(common, tree) -> list:
-    """Build (or take from the memo) the chunk circuit of every level of
-    `tree` over leaves of `common`; returns each level's chunk circuit."""
+def chunk_levels(common, tree) -> tuple[list, list]:
+    """Make (or take from the memo) the chunk circuit of every level of
+    `tree` over leaves of `common`.  Returns each level's chunk circuit,
+    and for each level [source, seconds, blob bytes]: the source is
+    "memo" (made earlier in this process), "disk" (loaded from the disk
+    cache) or "build" (built on the host, and written to the disk cache
+    when there is one); bytes are the cache blob's, None without one."""
     from ..models.wormhole import aggregator as agg
 
-    levels, n = [], tree.num_leaf_proofs
+    levels, made, n = [], [], tree.num_leaf_proofs
     while n > 1 or not levels:
-        chunk = agg.build_chunk_circuit(common, min(n, tree.tree_branching_factor))
+        branching = min(n, tree.tree_branching_factor)
+        digest = bytes(np.asarray(common.circuit_digest).tobytes())
+        path = agg._chunk_cache_path(digest, branching)
+        if (digest, branching) in agg._chunk_circuit_cache:
+            source = "memo"
+        else:
+            source = "disk" if path is not None and path.exists() else "build"
+        t0 = time.perf_counter()
+        chunk = agg.build_chunk_circuit(common, branching)
+        seconds = time.perf_counter() - t0
+        nbytes = path.stat().st_size if path is not None and path.exists() else None
+        made.append([source, seconds, nbytes])
         levels.append(chunk)
         common = chunk.data.common
         n = -(-n // tree.tree_branching_factor)
-    return levels
+    return levels, made
 
 
 def aggregate_point(verifier_data, leaf_proof, branching: int, depth: int,
@@ -85,9 +110,9 @@ def aggregate_point(verifier_data, leaf_proof, branching: int, depth: int,
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    levels = chunk_levels(verifier_data.common, tree)
-    build_s = time.perf_counter() - t0
+    levels, made = chunk_levels(verifier_data.common, tree)
+    build_s = sum(m[1] for m in made if m[0] == "build")
+    load_s = sum(m[1] for m in made if m[0] == "disk")
     aggregator, root, first_s = aggregate()
     _, again, warm_s = aggregate()
     if again.proof.to_bytes() != root.proof.to_bytes():
@@ -104,8 +129,11 @@ def aggregate_point(verifier_data, leaf_proof, branching: int, depth: int,
     if not np.array_equal(pis[0], np.asarray(leaf_proof.public_inputs, dtype=np.uint64)):
         raise RuntimeError(f"({branching}, {depth}): the root does not carry the leaf's public inputs")
     return [
-        {"metric": f"aggregate_proofs_{branching}_{depth}", "value": build_s + first_s,
-         "value_warm": warm_s, "unit": "s", "chunk_build_s": build_s,
+        {"metric": f"aggregate_proofs_{branching}_{depth}",
+         "value": sum(m[1] for m in made) + first_s, "value_warm": warm_s, "unit": "s",
+         "chunk_build_s": build_s, "chunk_cache_load_s": load_s,
+         "chunk_cache_bytes": [m[2] for m in made], "chunk_sources": [m[0] for m in made],
+         "chunk_cache_dir": os.environ.get("QZK_CIRCUIT_CACHE_DIR"),
          "chunk_degree_bits": [c.data.common.degree_bits for c in levels],
          "chunks": sum(branching ** k for k in range(depth)), "leaves": len(parsed),
          "max_memory_allocated": peak,
@@ -145,8 +173,16 @@ def main(argv=None) -> None:
                     help="grid points b,d (default: 2,1 2,2 2,3)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    for record in run(args.grid or DEFAULT_GRID, resolve_device(args.device)):
-        print(json.dumps(record), flush=True)
+    device = resolve_device(args.device)
+    named = "QZK_CIRCUIT_CACHE_DIR" in os.environ
+    with tempfile.TemporaryDirectory(prefix="qzk_chunk_cache_") as tmp:
+        os.environ.setdefault("QZK_CIRCUIT_CACHE_DIR", tmp)
+        try:
+            for record in run(args.grid or DEFAULT_GRID, device):
+                print(json.dumps(record), flush=True)
+        finally:
+            if not named:
+                del os.environ["QZK_CIRCUIT_CACHE_DIR"]
 
 
 if __name__ == "__main__":

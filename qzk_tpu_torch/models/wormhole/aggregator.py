@@ -17,19 +17,25 @@ reuse it for all chunks of that level — identical proof/PI semantics,
 k× less build work.
 
 Chunk proves run on the device the caller names: CUDA unless it passes
-device="cpu".  The JAX package also keeps chunk circuits in a disk cache
-(QZK_CIRCUIT_CACHE_DIR); the port does not yet, since that needs the
-circuit serialization it has not ported.  A build is seconds of host
-Python: 1.8-2.2 s for the branching-1 chunk over the square test circuit
-(2^13 rows) and 8.3-9.9 s for the branching-2 chunk over the zk Wormhole
-(2^15 rows), on the host of an NVIDIA H100 80GB HBM3 machine (700 W
-limit; chip_smoke.py, PERF.md).
+device="cpu".  Chunk circuits are memoized in memory and kept in a disk
+cache (QZK_CIRCUIT_CACHE_DIR; see _chunk_cache_path), as in the JAX
+package, so that a process whose cache holds a level shape loads it in
+place of building it: a build is seconds of host Python, 1.8-2.2 s for
+the branching-1 chunk over the square test circuit (2^13 rows) and
+8.3-9.9 s for the branching-2 chunk over the zk Wormhole (2^15 rows), on
+the host of an NVIDIA H100 80GB HBM3 machine (700 W limit;
+chip_smoke.py, PERF.md).  The port's blobs pickle its own classes, so
+their directory, file names and magic differ from the JAX package's:
+each package finds only its own blobs, and refuses the other's.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import os
+import pickle
+import struct
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -85,21 +91,95 @@ class _ChunkCircuit:
 # circuit depends only on the child-proof shape (common data) and the
 # chunk size, so a proving service aggregating many batches builds each
 # shape once per process (the reference rebuilds per chunk per level —
-# tree.rs:106-143).
+# tree.rs:106-143; we additionally reuse across aggregate() calls and,
+# via the disk cache below, across processes).
 _chunk_circuit_cache: dict = {}
+
+# Bump when CircuitBuilder / recursion gadget output changes shape, so
+# stale cached circuits are rebuilt rather than mis-proved.
+_CHUNK_CACHE_VERSION = 1
+# The JAX package's slot is .cache/chunk_circuits/chunk_{digest}_b{b}_v1.bin
+# with magic b"QZKA\x01", for the same digests: the port's differs in
+# all three, so that neither package unpickles the other's classes.
+_MAGIC_CHUNK = b"QZTA\x01"
+_DEFAULT_CACHE_DIR = Path(".cache") / "chunk_circuits_torch"
+
+
+def _chunk_cache_path(digest: bytes, branching: int) -> Path | None:
+    """Disk-cache slot for a chunk circuit (the recursion-circuit build
+    is seconds of host Python per shape and dominates a cold
+    aggregation; the proofs it produces are identical either way).
+    QZK_CIRCUIT_CACHE_DIR overrides the default .cache/chunk_circuits_torch
+    (relative to the working directory);
+    QZK_CIRCUIT_CACHE_DIR="" disables disk caching."""
+    root = os.environ.get("QZK_CIRCUIT_CACHE_DIR")
+    if root == "":
+        return None
+    base = Path(root) if root else _DEFAULT_CACHE_DIR
+    return base / (
+        f"chunk_torch_{digest.hex()[:32]}_b{branching}_v{_CHUNK_CACHE_VERSION}.bin"
+    )
+
+
+def _chunk_circuit_to_bytes(circuit: _ChunkCircuit) -> bytes:
+    from ...utils.serialization import circuit_data_to_bytes
+
+    data_blob = circuit_data_to_bytes(circuit.data)
+    targets_blob = pickle.dumps(
+        (circuit.verifier_data_target, circuit.proof_targets), protocol=4
+    )
+    return (
+        _MAGIC_CHUNK
+        + struct.pack("<2Q", len(data_blob), len(targets_blob))
+        + data_blob
+        + targets_blob
+    )
+
+
+def _chunk_circuit_from_bytes(blob: bytes) -> _ChunkCircuit:
+    from ...utils.serialization import circuit_data_from_bytes
+
+    if blob[:5] != _MAGIC_CHUNK:
+        raise ValueError("bad chunk-circuit cache blob")
+    ld, lt = struct.unpack_from("<2Q", blob, 5)
+    off = 5 + 16
+    data = circuit_data_from_bytes(blob[off : off + ld])
+    vd_t, proof_ts = pickle.loads(blob[off + ld : off + ld + lt])
+    return _ChunkCircuit(
+        data=data, verifier_data_target=vd_t, proof_targets=proof_ts
+    )
+
+
+def _write_chunk_cache(path: Path, circuit: _ChunkCircuit) -> int:
+    """Write `circuit` to its slot through a temporary name of this
+    process and thread, so that no reader finds half a blob; returns
+    the blob's bytes."""
+    blob = _chunk_circuit_to_bytes(circuit)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}")
+    tmp.write_bytes(blob)
+    os.replace(tmp, path)
+    return len(blob)
 
 
 def build_chunk_circuit(common, branching: int) -> _ChunkCircuit:
     """The recursion circuit verifying `branching` child proofs and
     re-exporting their public inputs (tree.rs:106-127).  Memoized in
-    memory, keyed by (child circuit digest, branching)."""
+    memory and on disk, keyed by (child circuit digest, branching)."""
     digest = bytes(np.asarray(common.circuit_digest).tobytes())
     key = (digest, branching)
     cached = _chunk_circuit_cache.get(key)
     if cached is not None:
         return cached
+    path = _chunk_cache_path(digest, branching)
+    if path is not None and path.exists():
+        circuit = _chunk_circuit_from_bytes(path.read_bytes())
+        _chunk_circuit_cache[key] = circuit
+        return circuit
     circuit = _build_chunk_circuit_uncached(common, branching)
     _chunk_circuit_cache[key] = circuit
+    if path is not None:
+        _write_chunk_cache(path, circuit)
     return circuit
 
 

@@ -18,6 +18,15 @@ proof at x = 5, under ``standard_recursion_config()``
 of ``aggregate_to_tree`` over the two zk Wormhole proofs of
 ``aggregation_leaf_inputs()`` as a (2, 1) tree
 (tests/test_torch_aggregate_pin.py).
+
+The artifact pins: ``WORMHOLE_COMMON_BIN_SHA256`` and
+``WORMHOLE_VERIFIER_BIN_SHA256``, of the common.bin and verifier.bin
+that the JAX package's ``generate_circuit_binaries`` writes (the
+Wormhole under ``standard_recursion_config()``;
+tests/test_torch_serialization.py); ``WORMHOLE_ZK_P2_PROOF_SHA256``, of
+the JAX package's ``write_proof(proof_to_p2(proof, common), ...)`` of
+the zk Wormhole proof above in the qp-plonky2 byte format
+(tests/test_torch_zk.py).
 """
 
 import dataclasses
@@ -43,6 +52,15 @@ SQUARE_CHUNK_PROOF_SHA256 = (
 )
 AGG_2_1_ZK_ROOT_SHA256 = (
     "a64855c51ea85e79cab855cf46c990c9233dc474bdbcaf0e5b705fa14496cfec"
+)
+WORMHOLE_COMMON_BIN_SHA256 = (
+    "8468ed25d14547ceda071f5c243c6ca9d0aa007e84cc87664023a22dc7df5a51"
+)
+WORMHOLE_VERIFIER_BIN_SHA256 = (
+    "92a22c05785a71f8a351aecb1f02204af0b6574062b7a9f2828476f1da234f73"
+)
+WORMHOLE_ZK_P2_PROOF_SHA256 = (
+    "7e8259f8e3de38c9227e8afdb9544bf324737563eb79632f95d65a3a2b90e6d9"
 )
 
 DEFAULT_SECRET = (

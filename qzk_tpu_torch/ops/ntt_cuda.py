@@ -9,7 +9,9 @@ version in ``ntt_torch.py``.  The input may be row-major or the
 transpose of a row-major tensor (the second four-step pass reads one in
 place).  ``LAUNCHES`` counts kernel launches, and nothing else;
 ``K3_SHAPES`` counts them by (b, log_n, m, strided, twiddle), so that a
-run can time K3 at every shape a prove gave it.
+run can time K3 at every shape a prove gave it.  The library loads, and
+the counts move, under a lock: the aggregator proves chunks from
+several threads.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import collections
 import ctypes
 import functools
 import os
+import threading
 from typing import NamedTuple
 
 import torch
@@ -28,15 +31,23 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 LAUNCHES = {"ntt_axis0": 0}
 K3_SHAPES: collections.Counter = collections.Counter()
+_LOCK = threading.Lock()
 
 # The block size a tile grows to.
 TARGET_THREADS = 128
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    K3_SHAPES.clear()
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        K3_SHAPES.clear()
+
+
+def _count(key: str, k3_shape) -> None:
+    with _LOCK:
+        LAUNCHES[key] += 1
+        K3_SHAPES[k3_shape] += 1
 
 
 class _Kernel:
@@ -94,15 +105,19 @@ def block(lib, log_n: int, log_r: int, log_cp: int) -> Block:
 
 def _lib(device: torch.device):
     """The library, and (max shared bytes, SM count) of the device."""
-    if _Kernel.lib is None:
-        _Kernel.lib = bind(ctypes.CDLL(library_path()))
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _Kernel.devices:
-        limit, sms = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            _check(_Kernel.lib.qzk_ntt_init(ctypes.byref(limit), ctypes.byref(sms)),
-                   "qzk_ntt_init")
-        _Kernel.devices[idx] = (limit.value, sms.value)
+    found = _Kernel.devices.get(idx)
+    if found is not None:
+        return _Kernel.lib, found
+    with _LOCK:
+        if _Kernel.lib is None:
+            _Kernel.lib = bind(ctypes.CDLL(library_path()))
+        if idx not in _Kernel.devices:
+            limit, sms = ctypes.c_int(0), ctypes.c_int(0)
+            with torch.cuda.device(idx):
+                _check(_Kernel.lib.qzk_ntt_init(ctypes.byref(limit), ctypes.byref(sms)),
+                       "qzk_ntt_init")
+            _Kernel.devices[idx] = (limit.value, sms.value)
     return _Kernel.lib, _Kernel.devices[idx]
 
 
@@ -207,8 +222,7 @@ def ntt_axis0(
                               tw_ptr, log_n, m, b, log_r, log_cp, grid, flags, stream),
             "qzk_ntt_axis0",
         )
-    LAUNCHES["ntt_axis0"] += 1
-    K3_SHAPES[(b, log_n, m, sc != 1, twiddle is not None)] += 1
+    _count("ntt_axis0", (b, log_n, m, sc != 1, twiddle is not None))
     return out.reshape(x.shape)
 
 

@@ -11,7 +11,8 @@ holding uint64 bit patterns, as everywhere in the port: the kernels
 stage their reads through shared memory, so no transposed copy is made.
 ``LAUNCHES`` counts kernel launches, and nothing else; ``K1_SHAPES``
 counts K1's launches by (n, w), so that a run can time K1 at every
-shape a prove gave it.
+shape a prove gave it.  The library loads, and the counts move, under a
+lock: the aggregator proves chunks from several threads.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
@@ -30,12 +32,21 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 LAUNCHES = {"hash_rows": 0, "permute": 0}
 K1_SHAPES: collections.Counter = collections.Counter()
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    K1_SHAPES.clear()
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        K1_SHAPES.clear()
+
+
+def _count(key: str, k1_shape=None) -> None:
+    with _LOCK:
+        LAUNCHES[key] += 1
+        if k1_shape is not None:
+            K1_SHAPES[k1_shape] += 1
 
 
 class _Kernels:
@@ -57,21 +68,24 @@ def library_path() -> str:
 
 
 def _lib(device: torch.device):
-    if _Kernels.lib is None:
-        lib = ctypes.CDLL(library_path())
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.qzk_poseidon_init.argtypes = [vp]
-        lib.qzk_hash_rows.argtypes = [vp, vp, ll, ctypes.c_int, vp]
-        lib.qzk_permute.argtypes = [vp, vp, ll, vp]
-        for f in (lib.qzk_poseidon_init, lib.qzk_hash_rows, lib.qzk_permute):
-            f.restype = ctypes.c_int
-        _Kernels.lib = lib
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _Kernels.ready:
-        rc = np.ascontiguousarray(_RC, dtype=np.uint64)
-        with torch.cuda.device(idx):
-            _check(_Kernels.lib.qzk_poseidon_init(rc.ctypes.data), "qzk_poseidon_init")
-        _Kernels.ready.add(idx)
+    if idx in _Kernels.ready:
+        return _Kernels.lib
+    with _LOCK:
+        if _Kernels.lib is None:
+            lib = ctypes.CDLL(library_path())
+            vp, ll = ctypes.c_void_p, ctypes.c_longlong
+            lib.qzk_poseidon_init.argtypes = [vp]
+            lib.qzk_hash_rows.argtypes = [vp, vp, ll, ctypes.c_int, vp]
+            lib.qzk_permute.argtypes = [vp, vp, ll, vp]
+            for f in (lib.qzk_poseidon_init, lib.qzk_hash_rows, lib.qzk_permute):
+                f.restype = ctypes.c_int
+            _Kernels.lib = lib
+        if idx not in _Kernels.ready:
+            rc = np.ascontiguousarray(_RC, dtype=np.uint64)
+            with torch.cuda.device(idx):
+                _check(_Kernels.lib.qzk_poseidon_init(rc.ctypes.data), "qzk_poseidon_init")
+            _Kernels.ready.add(idx)
     return _Kernels.lib
 
 
@@ -105,8 +119,7 @@ def hash_no_pad_rows(rows: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(rows.device):
         _check(lib.qzk_hash_rows(rows.data_ptr(), out.data_ptr(), n, w, stream),
                "qzk_hash_rows")
-    LAUNCHES["hash_rows"] += 1
-    K1_SHAPES[(n, w)] += 1
+    _count("hash_rows", (n, w))
     return out
 
 
@@ -129,5 +142,5 @@ def permute(states: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(states.device):
         _check(lib.qzk_permute(states.data_ptr(), out.data_ptr(), b, stream),
                "qzk_permute")
-    LAUNCHES["permute"] += 1
+    _count("permute")
     return out

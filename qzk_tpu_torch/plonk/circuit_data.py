@@ -135,6 +135,15 @@ class ProverOnlyCircuitData:
     preprocessed_tree: mk.MerkleTree
     sigma_encodings: np.ndarray  # (num_routed, N) — sigma column values
 
+    def __getstate__(self):
+        """The pickled state (utils/serialization.py's prover-only blob,
+        copies) leaves out the prover contexts that a prove stores here
+        (`_torch_ctxs`, plonk/device_prover.py::get_context): device
+        tensors, rebuilt at the next prove."""
+        state = dict(self.__dict__)
+        state.pop("_torch_ctxs", None)
+        return state
+
 
 @dataclass
 class VerifierOnlyCircuitData:

@@ -73,6 +73,14 @@ class GeneratorBatches:
     num_targets: int
     roots: np.ndarray  # target -> union-find root
 
+    def __getstate__(self):
+        """The pickled state leaves out the native plan that the first
+        run_generators derives and stores here (`_native_plan`), so that
+        a plan pickles the same before and after a prove."""
+        state = dict(self.__dict__)
+        state.pop("_native_plan", None)
+        return state
+
 
 def compile_generators(builder) -> GeneratorBatches:
     # all union-find roots at once (pointer jumping — the per-target

@@ -5,7 +5,9 @@ Everything goes to ``<repo>/build/qzk_tpu_torch/`` (listed in
 checkout builds once and a changed source rebuilds.  CUDA sources are
 compiled with plain ``nvcc`` into a shared library with a C interface,
 loaded with ``ctypes``: no PyTorch headers and no ``ninja``, so a build
-takes seconds.
+takes seconds.  Threads of one process build a library once, under a
+lock of its own; processes that share the build directory each compile
+to a name of their own and move the result into place.
 """
 
 from __future__ import annotations
@@ -14,9 +16,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO, "build", "qzk_tpu_torch")
+
+_LOCKS_LOCK = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}
+
+
+def _lock_of(out: str) -> threading.Lock:
+    """The lock of one library path: threads building different
+    libraries still compile in parallel."""
+    with _LOCKS_LOCK:
+        return _LOCKS.setdefault(out, threading.Lock())
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -34,11 +47,11 @@ def _tagged_path(name: str, files: list[str], flags: list[str], ext: str) -> str
 
 
 def _compile(cmd: list[str], out: str) -> None:
-    """Run a compiler writing `out` through a temporary name, so that
-    concurrent builders never load a half-written library.  The
-    compiler's messages (nvcc -Xptxas -v: registers, spills) go to
-    `out`.log."""
-    tmp = f"{out}.tmp{os.getpid()}"
+    """Run a compiler writing `out` through a temporary name of this
+    process and thread, so that concurrent builders never load a
+    half-written library.  The compiler's messages (nvcc -Xptxas -v:
+    registers, spills) go to `out`.log."""
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     res = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True)
     with open(out + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
@@ -63,15 +76,17 @@ def nvcc() -> str:
 def cuda_library(name: str, source: str, headers: list[str]) -> str:
     """Path of the shared library built from one .cu source."""
     out = _tagged_path(name, [source, *headers], NVCC_FLAGS, ".so")
-    if not os.path.exists(out):
-        inc = ["-I", os.path.dirname(source)]
-        _compile([nvcc(), *NVCC_FLAGS, *inc, source], out)
+    with _lock_of(out):
+        if not os.path.exists(out):
+            inc = ["-I", os.path.dirname(source)]
+            _compile([nvcc(), *NVCC_FLAGS, *inc, source], out)
     return out
 
 
 def cxx_library(name: str, source: str, flags: list[str]) -> str:
     """Path of the shared library built from one C++ source with g++."""
     out = _tagged_path(name, [source], flags, ".so")
-    if not os.path.exists(out):
-        _compile(["g++", *flags, source], out)
+    with _lock_of(out):
+        if not os.path.exists(out):
+            _compile(["g++", *flags, source], out)
     return out

@@ -4,7 +4,9 @@ AGG_2_1_ZK_ROOT_SHA256, the hash that chip_smoke.py demands of the
 port's root on the card; the port's host verifier accepts that root and
 parses the two leaves back from it.  A file of its own, so that the JAX
 proves (two leaves and a 2^15-row chunk, about two minutes on the CPU)
-get a test worker of their own."""
+get a test worker of their own.  Both packages run with
+QZK_CIRCUIT_CACHE_DIR="": no chunk-circuit disk cache writes into the
+checkout."""
 
 import hashlib
 
@@ -32,6 +34,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_chunk_disk_cache():
+    """build_chunk_circuit would write the (2, 1) chunk circuit's blob
+    into the checkout's .cache/."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("QZK_CIRCUIT_CACHE_DIR", "")
+        yield
 
 
 def _jax_leaf_inputs():

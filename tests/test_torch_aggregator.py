@@ -4,9 +4,13 @@ the chunk circuit over the zk Wormhole at branching 2 equals the JAX
 package's, the fast tier of tests/test_aggregator.py holds against the
 port's module, the context LRU evicts and keys by the device with its
 index, the chunk fan-out runs in order, and the aggregator's dummy proof
-loads, verifies and re-serializes.  The JAX pin of the (2, 1) root is in
+loads, verifies and re-serializes.  The chunk-circuit disk cache round
+trips the square chunk circuit, reloads it with no host build, writes
+nothing under QZK_CIRCUIT_CACHE_DIR="", and keeps its slot apart from
+the JAX package's.  The JAX pin of the (2, 1) root is in
 tests/test_torch_aggregate_pin.py, a file of its own for its minutes of
-JAX prove."""
+JAX prove.  Every test here runs with QZK_CIRCUIT_CACHE_DIR in a
+temporary directory, so that nothing is written into the checkout."""
 
 import hashlib
 import os
@@ -19,6 +23,7 @@ import torch
 from qzk_tpu.models.wormhole import aggregator as jagg
 from qzk_tpu.models.wormhole.circuit import WormholeCircuit as JCircuit
 from qzk_tpu.plonk.config import CircuitConfig as JConfig
+from qzk_tpu.utils import serialization as jser
 from qzk_tpu.utils.serialization import common_to_bytes
 from qzk_tpu_torch.models.wormhole import aggregator as tagg
 from qzk_tpu_torch.models.wormhole import fixtures as tfix
@@ -35,6 +40,7 @@ from qzk_tpu_torch.models.wormhole.prover import WormholeProver as TProver
 from qzk_tpu_torch.plonk import device_prover as dp
 from qzk_tpu_torch.plonk.config import CircuitConfig as TConfig
 from qzk_tpu_torch.utils import codec
+from qzk_tpu_torch.utils import serialization as tser
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,6 +54,15 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _chunk_cache_in_a_temporary_directory(tmp_path_factory):
+    """The port's build_chunk_circuit writes its disk cache under
+    QZK_CIRCUIT_CACHE_DIR: keep it out of the checkout."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("QZK_CIRCUIT_CACHE_DIR", str(tmp_path_factory.mktemp("chunk_cache")))
+        yield
+
+
 @pytest.fixture(scope="module")
 def torch_zk():
     c = TCircuit(TConfig.standard_recursion_zk_config())
@@ -59,11 +74,17 @@ def jax_zk_common():
     return JCircuit(JConfig.standard_recursion_zk_config()).build_circuit().common
 
 
-def test_wormhole_chunk_circuit_at_branching_2_matches(torch_zk, jax_zk_common):
+@pytest.fixture(scope="module")
+def chunks_2_1(torch_zk, jax_zk_common):
+    """The (2, 1) tree's chunk circuit, built by each package."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("QZK_CIRCUIT_CACHE_DIR", "")
         jc = jagg._build_chunk_circuit_uncached(jax_zk_common, 2)
-    tc = tagg._build_chunk_circuit_uncached(torch_zk[0].common, 2)
+    return jc, tagg._build_chunk_circuit_uncached(torch_zk[0].common, 2)
+
+
+def test_wormhole_chunk_circuit_at_branching_2_matches(chunks_2_1):
+    jc, tc = chunks_2_1
     jcom, tcom = jc.data.common, tc.data.common
     assert tcom.degree_bits == jcom.degree_bits == 15
     assert tcom.config.zero_knowledge
@@ -76,6 +97,13 @@ def test_wormhole_chunk_circuit_at_branching_2_matches(torch_zk, jax_zk_common):
     assert common_to_bytes(tcom) == common_to_bytes(jcom)
     assert len(tc.data.prover_only.rows) == len(jc.data.prover_only.rows)
     assert tcom.num_public_inputs == 32
+
+
+def test_wormhole_chunk_circuit_serialized_bytes_match(chunks_2_1):
+    jc, tc = chunks_2_1
+    assert tser.common_to_bytes(tc.data.common) == jser.common_to_bytes(jc.data.common)
+    assert tser.verifier_only_to_bytes(tc.data.verifier_only) == jser.verifier_only_to_bytes(
+        jc.data.verifier_only)
 
 
 # -- the fast tier of tests/test_aggregator.py, on the port -----------------
@@ -144,23 +172,117 @@ class TestAggregatedPiParsing:
             )
 
 
-def test_chunk_circuit_memoized_per_digest_and_branching(monkeypatch):
+@pytest.fixture(scope="module")
+def square_chunk(tmp_path_factory):
+    """The square test circuit and its branching-1 chunk circuit, made
+    twice through build_chunk_circuit (a fresh memo, the disk cache in a
+    fresh directory); the host builds are counted."""
+    cache = tmp_path_factory.mktemp("square_chunk_cache")
     calls = []
     real = tagg._build_chunk_circuit_uncached
-
-    def counting(common, branching):
-        calls.append(branching)
-        return real(common, branching)
-
-    monkeypatch.setattr(tagg, "_build_chunk_circuit_uncached", counting)
-    monkeypatch.setattr(tagg, "_chunk_circuit_cache", {})
     data, _ = tfix.square_circuit(TConfig.standard_recursion_config())
-    a = tagg.build_chunk_circuit(data.common, 1)
-    b = tagg.build_chunk_circuit(data.common, 1)
-    assert a is b and calls == [1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("QZK_CIRCUIT_CACHE_DIR", str(cache))
+        mp.setattr(tagg, "_chunk_circuit_cache", {})
+        mp.setattr(tagg, "_build_chunk_circuit_uncached",
+                   lambda common, branching: calls.append(branching) or real(common, branching))
+        a = tagg.build_chunk_circuit(data.common, 1)
+        b = tagg.build_chunk_circuit(data.common, 1)
+        memo = dict(tagg._chunk_circuit_cache)
+        path = tagg._chunk_cache_path(bytes(np.asarray(data.common.circuit_digest).tobytes()), 1)
+    return {"data": data, "first": a, "second": b, "calls": calls, "memo": memo,
+            "cache": cache, "path": path}
+
+
+def test_chunk_circuit_memoized_per_digest_and_branching(square_chunk):
+    data, a, b = square_chunk["data"], square_chunk["first"], square_chunk["second"]
+    assert a is b and square_chunk["calls"] == [1]
     key = (bytes(np.asarray(data.common.circuit_digest).tobytes()), 1)
-    assert tagg._chunk_circuit_cache[key] is a
-    assert (key[0], 2) not in tagg._chunk_circuit_cache
+    assert square_chunk["memo"][key] is a
+    assert (key[0], 2) not in square_chunk["memo"]
+
+
+def _prover_arrays(po):
+    return {name: getattr(po, name) for name in (
+        "slot_rows", "slot_cols", "slot_targets", "preprocessed_values",
+        "preprocessed_lde", "sigma_encodings")}
+
+
+def test_chunk_cache_round_trip(square_chunk):
+    path, built = square_chunk["path"], square_chunk["first"]
+    assert path.parent == square_chunk["cache"]
+    assert os.listdir(square_chunk["cache"]) == [path.name]
+    blob = path.read_bytes()
+    assert blob[:5] == tagg._MAGIC_CHUNK
+    loaded = tagg._chunk_circuit_from_bytes(blob)
+    assert tser.common_to_bytes(loaded.data.common) == tser.common_to_bytes(built.data.common)
+    assert tser.verifier_only_to_bytes(loaded.data.verifier_only) == (
+        tser.verifier_only_to_bytes(built.data.verifier_only))
+    got, want = _prover_arrays(loaded.data.prover_only), _prover_arrays(built.data.prover_only)
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+    assert len(loaded.data.prover_only.rows) == len(built.data.prover_only.rows)
+    assert np.array_equal(loaded.data.prover_only.preprocessed_tree.cap,
+                          built.data.prover_only.preprocessed_tree.cap)
+    assert len(loaded.proof_targets) == len(built.proof_targets) == 1
+
+
+def test_chunk_cache_reload_runs_no_host_build(square_chunk, monkeypatch):
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", str(square_chunk["cache"]))
+    monkeypatch.setattr(tagg, "_chunk_circuit_cache", {})
+
+    def no_build(common, branching):
+        raise AssertionError("the chunk circuit was built, not loaded from the disk cache")
+
+    monkeypatch.setattr(tagg, "_build_chunk_circuit_uncached", no_build)
+    data = square_chunk["data"]
+    loaded = tagg.build_chunk_circuit(data.common, 1)
+    assert loaded is not square_chunk["first"]
+    assert (loaded.data.common.circuit_digest == square_chunk["first"].data.common.circuit_digest).all()
+    assert tagg.build_chunk_circuit(data.common, 1) is loaded
+
+
+def test_empty_cache_dir_writes_nothing(square_chunk, tmp_path, monkeypatch):
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", "")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tagg, "_chunk_circuit_cache", {})
+    calls = []
+    monkeypatch.setattr(tagg, "_build_chunk_circuit_uncached",
+                        lambda common, branching: calls.append(branching) or square_chunk["first"])
+    data = square_chunk["data"]
+    assert tagg._chunk_cache_path(b"\x00" * 32, 1) is None
+    assert tagg.build_chunk_circuit(data.common, 1) is square_chunk["first"]
+    assert calls == [1] and os.listdir(tmp_path) == []
+
+
+def test_chunk_cache_slot_is_not_the_jax_packages(square_chunk, monkeypatch):
+    digest = bytes(np.asarray(square_chunk["data"].common.circuit_digest).tobytes())
+    monkeypatch.delenv("QZK_CIRCUIT_CACHE_DIR")
+    tpath, jpath = tagg._chunk_cache_path(digest, 2), jagg._chunk_cache_path(digest, 2)
+    assert tpath.parent != jpath.parent and tpath.name != jpath.name
+    assert str(tpath.parent) == os.path.join(".cache", "chunk_circuits_torch")
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", str(square_chunk["cache"]))
+    tpath, jpath = tagg._chunk_cache_path(digest, 2), jagg._chunk_cache_path(digest, 2)
+    assert tpath.parent == jpath.parent and tpath.name != jpath.name
+    assert tagg._MAGIC_CHUNK != jagg._MAGIC_CHUNK
+    with pytest.raises(ValueError, match="bad chunk-circuit cache blob"):
+        jagg._chunk_circuit_from_bytes(square_chunk["path"].read_bytes())
+
+
+def test_chunk_cache_blob_leaves_the_context_out(square_chunk, monkeypatch):
+    """A chunk circuit that has proved holds its context on the prover
+    data; the cache blob is the same as before."""
+    built = square_chunk["first"]
+    before = tagg._chunk_circuit_to_bytes(built)
+    monkeypatch.setattr(built.data.prover_only, "_torch_ctxs", {"cpu": object()}, raising=False)
+    assert tagg._chunk_circuit_to_bytes(built) == before
+
+
+def test_chunk_cache_write_leaves_no_temporary_file(square_chunk, tmp_path):
+    path = tmp_path / "sub" / "chunk.bin"
+    nbytes = tagg._write_chunk_cache(path, square_chunk["first"])
+    assert nbytes == path.stat().st_size
+    assert os.listdir(tmp_path / "sub") == ["chunk.bin"]
 
 
 # -- the per-device context cache --------------------------------------------
@@ -389,6 +511,8 @@ class _StubCommon:
         self.level = level
         self.degree_bits = 13 + 2 * min(level, 1)
         self.num_public_inputs = 16
+        # the bench looks for each level's slot in the disk cache
+        self.circuit_digest = np.array([level, 0, 0, 0], dtype=np.uint64)
 
 
 class _StubData:
@@ -444,9 +568,105 @@ def test_bench_aggregate_point_on_stubbed_proves(monkeypatch):
     assert agg_rec["max_memory_allocated"] is None and agg_rec["device"] == "cpu"
     assert ver_rec["metric"] == "verify_aggregate_proof_2_3" and ver_rec["verified"]
     assert agg_rec["value"] >= agg_rec["chunk_build_s"] >= 0 and agg_rec["value_warm"] >= 0
+    assert agg_rec["chunk_sources"] == ["build"] * 3 and agg_rec["chunk_cache_load_s"] == 0
+    assert agg_rec["chunk_cache_bytes"] == [None] * 3
     # chunk_levels takes levels 0, 1, 2, then each aggregation takes one
     # circuit a level for its 4 + 2 + 1 chunks
     assert built == [(0, 2), (1, 2), (2, 2)] * 3
+
+
+def test_bench_reports_where_each_chunk_circuit_came_from(monkeypatch, tmp_path):
+    """chunk_levels: a level's circuit is built (and written to the
+    cache), loaded from the cache, or taken from the memo."""
+    from qzk_tpu_torch.benches import aggregate as bench
+
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(tagg, "_chunk_circuit_cache", {})
+    made = []
+
+    def build(common, size):
+        digest = bytes(np.asarray(common.circuit_digest).tobytes())
+        path = tagg._chunk_cache_path(digest, size)
+        made.append("disk" if path.exists() else "build")
+        path.write_bytes(b"x" * (10 + common.level))
+        circuit = tagg._ChunkCircuit(data=_StubData(common.level + 1),
+                                     verifier_data_target=None, proof_targets=[None] * size)
+        if common.level == 0:
+            tagg._chunk_circuit_cache[(digest, size)] = circuit
+        return circuit
+
+    monkeypatch.setattr(tagg, "build_chunk_circuit", build)
+    tree = tagg.TreeAggregationConfig.new(2, 2)
+    levels, first = bench.chunk_levels(_StubCommon(0), tree)
+    assert [m[0] for m in first] == ["build", "build"] and [m[2] for m in first] == [10, 11]
+    _, second = bench.chunk_levels(_StubCommon(0), tree)
+    assert [m[0] for m in second] == ["memo", "disk"]
+    assert made == ["build", "build", "disk", "disk"]
+    assert len(levels) == 2 and all(m[1] >= 0 for m in first + second)
+
+
+def test_bench_uses_a_temporary_cache_unless_one_is_named(monkeypatch, tmp_path, capsys):
+    from qzk_tpu_torch.benches import aggregate as bench
+
+    seen = []
+
+    def run(grid, device):
+        seen.append(os.environ["QZK_CIRCUIT_CACHE_DIR"])
+        assert os.path.isdir(seen[-1]) and grid == [(2, 1)] and device.type == "cpu"
+        yield {"metric": "stub"}
+
+    monkeypatch.setattr(bench, "run", run)
+    monkeypatch.delenv("QZK_CIRCUIT_CACHE_DIR")
+    bench.main(["2,1", "--device", "cpu"])
+    assert not os.path.exists(seen[0]) and "QZK_CIRCUIT_CACHE_DIR" not in os.environ
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", str(tmp_path))
+    bench.main(["2,1", "--device", "cpu"])
+    assert seen[1] == str(tmp_path) and os.environ["QZK_CIRCUIT_CACHE_DIR"] == str(tmp_path)
+    assert capsys.readouterr().out.count('"metric": "stub"') == 2
+
+
+def test_build_chunk_cache_tool_walks_each_chain(monkeypatch, tmp_path, capsys):
+    """tools/build_chunk_cache.py: one chunk circuit a level of each
+    b:maxdepth chain, each level's child the level below, reported as a
+    build or a cache hit; the memo is cleared after each level."""
+    import json
+
+    from qzk_tpu_torch.models.wormhole import circuit as tcircuit
+    from qzk_tpu_torch.tools import build_chunk_cache as tool
+
+    class _Leaf:
+        def __init__(self, config):
+            assert config.zero_knowledge
+
+        def build_verifier(self):
+            return _StubData(0)
+
+    calls = []
+
+    def build(common, size):
+        calls.append((common.level, size))
+        digest = bytes(np.asarray(common.circuit_digest).tobytes())
+        tagg._chunk_cache_path(digest, size).write_bytes(b"blob")
+        tagg._chunk_circuit_cache[(digest, size)] = "memo"
+        return tagg._ChunkCircuit(data=_StubData(common.level + 1),
+                                  verifier_data_target=None, proof_targets=[None] * size)
+
+    monkeypatch.setenv("QZK_CIRCUIT_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(tcircuit, "WormholeCircuit", _Leaf)
+    monkeypatch.setattr(tagg, "build_chunk_circuit", build)
+    monkeypatch.setattr(tagg, "_chunk_circuit_cache", {})
+    tool.main(["2:2", "3:1"])
+    tool.main(["2:1"])
+    assert calls == [(0, 2), (1, 2), (0, 3), (0, 2)]
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    chunk_lines = [x for x in lines if x["metric"].startswith("chunk_circuit")]
+    assert [(x["metric"], x["branching"], x["level"]) for x in chunk_lines] == [
+        ("chunk_circuit_build", 2, 1), ("chunk_circuit_build", 2, 2),
+        ("chunk_circuit_build", 3, 1), ("chunk_circuit_cache_hit", 2, 1)]
+    assert tagg._chunk_circuit_cache == {}
+    assert tool.parse_chain("7:2") == (7, 2)
+    with pytest.raises(ValueError):
+        tool.parse_chain("2:0")
 
 
 def test_bench_rejects_a_root_without_the_leaf(monkeypatch):

@@ -40,6 +40,15 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.plonk.recursion",
         "qzk_tpu_torch.models.wormhole.aggregator",
         "qzk_tpu_torch.benches.aggregate",
+        "qzk_tpu_torch.utils.serialization",
+        "qzk_tpu_torch.utils.plonky2_compat",
+        "qzk_tpu_torch.utils.plonky2_write",
+        "qzk_tpu_torch.utils.plonky2_verify",
+        "qzk_tpu_torch.models.wormhole.circuit_builder",
+        "qzk_tpu_torch.models.wormhole.example",
+        "qzk_tpu_torch.tools",
+        "qzk_tpu_torch.tools.build_chunk_cache",
+        "qzk_tpu_torch.benches.verify",
     } <= set(_modules())
     code = textwrap.dedent(
         f"""

@@ -3,7 +3,11 @@ against the JAX package's, on the square test circuit: both build the
 same branching-1 chunk circuit over it, fill the same witness from the
 same child proof, fail alike on a tampered child, and the sha256 of
 the JAX package's chunk proof pins SQUARE_CHUNK_PROOF_SHA256, the hash
-that chip_smoke.py demands of the port's chunk proof on the card."""
+that chip_smoke.py demands of the port's chunk proof on the card.  The
+port serializes the chunk circuit to the JAX package's common and
+verifier-only bytes, and each package refuses the other's chunk-cache
+blob.  Every test here runs with QZK_CIRCUIT_CACHE_DIR="": no disk
+cache of either package writes into the checkout."""
 
 import copy
 import hashlib
@@ -18,6 +22,7 @@ from qzk_tpu.plonk import recursion as jrec
 from qzk_tpu.plonk import witness as jwit
 from qzk_tpu.plonk.builder import CircuitBuilder as JBuilder
 from qzk_tpu.plonk.config import CircuitConfig as JConfig
+from qzk_tpu.utils import serialization as jser
 from qzk_tpu.utils.serialization import common_to_bytes
 from qzk_tpu_torch.models.wormhole import aggregator as tagg
 from qzk_tpu_torch.models.wormhole import fixtures as tfix
@@ -25,6 +30,7 @@ from qzk_tpu_torch.plonk import recursion as trec
 from qzk_tpu_torch.plonk import witness as twit
 from qzk_tpu_torch.plonk.config import CircuitConfig as TConfig
 from qzk_tpu_torch.plonk.proof import ProofWithPublicInputs as TProof
+from qzk_tpu_torch.utils import serialization as tser
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -36,9 +42,9 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(autouse=True, scope="module")
 def no_chunk_disk_cache():
-    """The JAX package writes chunk circuits to .cache/ unless told not to."""
+    """Both packages write chunk circuits to .cache/ unless told not to."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("QZK_CIRCUIT_CACHE_DIR", "")
         yield
@@ -98,6 +104,22 @@ def test_square_chunk_circuits_match(chunks):
     assert common_to_bytes(tcom) == common_to_bytes(jcom)
     assert len(tc.data.prover_only.rows) == len(jc.data.prover_only.rows)
     assert tcom.num_public_inputs == jcom.num_public_inputs == 1
+
+
+def test_square_chunk_serialized_bytes_match(chunks):
+    jc, tc = chunks
+    assert tser.common_to_bytes(tc.data.common) == jser.common_to_bytes(jc.data.common)
+    assert tser.verifier_only_to_bytes(tc.data.verifier_only) == jser.verifier_only_to_bytes(
+        jc.data.verifier_only)
+
+
+def test_each_package_refuses_the_others_chunk_blob(chunks):
+    """Refused on the magic, before the blob's pickles are loaded."""
+    jc, tc = chunks
+    with pytest.raises(ValueError, match="bad chunk-circuit cache blob"):
+        tagg._chunk_circuit_from_bytes(jagg._chunk_circuit_to_bytes(jc))
+    with pytest.raises(ValueError, match="bad chunk-circuit cache blob"):
+        jagg._chunk_circuit_from_bytes(tagg._chunk_circuit_to_bytes(tc))
 
 
 def test_square_child_proofs_are_byte_equal(child_proofs):

@@ -19,10 +19,12 @@ import qzk_tpu.plonk.witness as jwitness
 import qzk_tpu_torch.models.voting as tvoting
 import qzk_tpu_torch.plonk.config as tconfig
 import qzk_tpu_torch.plonk.witness as twitness
+from qzk_tpu.utils import serialization as jser
 from qzk_tpu.utils.serialization import common_to_bytes
 from qzk_tpu_torch.models.voting import fixtures as tfix
 from qzk_tpu_torch.ops import goldilocks as gl
 from qzk_tpu_torch.plonk.fri import VerificationError
+from qzk_tpu_torch.utils import serialization as tser
 from test_voting import create_test_inputs as jax_test_inputs
 
 CONFIGS = {
@@ -82,6 +84,19 @@ def test_build_matches_jax(sides):
     ).all()
     assert common_to_bytes(tdata.common) == common_to_bytes(jdata.common)
     assert tdata.common.degree_bits == 8
+
+
+def test_serialized_bytes_match_jax(sides):
+    """The port's common and verifier-only bytes are the JAX package's;
+    its prover-only blob of the proved circuit carries no context."""
+    _, jdata, _, tdata, _, _ = sides
+    assert tser.common_to_bytes(tdata.common) == jser.common_to_bytes(jdata.common)
+    assert tser.verifier_only_to_bytes(tdata.verifier_only) == jser.verifier_only_to_bytes(
+        jdata.verifier_only)
+    assert tdata.prover_only._torch_ctxs
+    back = tser.prover_only_from_bytes(tser.prover_only_to_bytes(tdata.prover_only))
+    assert not hasattr(back, "_torch_ctxs")
+    assert np.array_equal(back.preprocessed_lde, tdata.prover_only.preprocessed_lde)
 
 
 def test_jax_proof_pins_the_port_constant(sides):

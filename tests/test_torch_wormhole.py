@@ -4,7 +4,10 @@ circuit digest, constants/sigmas cap and common-data bytes; both
 witness generators must give the same wire values from
 synthetic_circuit_inputs(); and the sha256 of qzk_tpu's proof bytes
 pins qzk_tpu_torch's WORMHOLE_NONZK_PROOF_SHA256, the hash that
-chip_smoke.py demands of the port's proof on the card."""
+chip_smoke.py demands of the port's proof on the card.  The port's
+serializer writes the JAX package's common and verifier-only bytes of
+the circuit, and the example's inputs (models/wormhole/example.py) give
+the JAX package's witness."""
 
 import hashlib
 import os
@@ -20,6 +23,8 @@ from qzk_tpu.models.wormhole.prover import WormholeProver as JProver
 from qzk_tpu.plonk.config import CircuitConfig as JConfig
 from qzk_tpu.plonk.witness import PartialWitness as JPW
 from qzk_tpu.plonk.witness import run_generators as jrun
+from qzk_tpu.models.wormhole.example import build_example_inputs as jexample
+from qzk_tpu.utils import serialization as jser
 from qzk_tpu.utils.serialization import common_to_bytes
 from qzk_tpu_torch.models.wormhole import fixtures as tfix
 from qzk_tpu_torch.models.wormhole.circuit import WormholeCircuit as TCircuit
@@ -29,6 +34,8 @@ from qzk_tpu_torch.models.wormhole.verifier import WormholeVerifier as TVerifier
 from qzk_tpu_torch.plonk.config import CircuitConfig as TConfig
 from qzk_tpu_torch.plonk.witness import PartialWitness as TPW
 from qzk_tpu_torch.plonk.witness import run_generators as trun
+from qzk_tpu_torch.models.wormhole.example import build_example_inputs as texample
+from qzk_tpu_torch.utils import serialization as tser
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,6 +90,28 @@ def test_witness_values_match(jax_build, torch_build):
     tfill(tfix.synthetic_circuit_inputs(), tpw, tt)
     jv, _ = jrun(jd.prover_only.plan, jpw)
     tv, _ = trun(td.prover_only.plan, tpw)
+    assert np.array_equal(jv, tv)
+
+
+def test_serialized_common_and_verifier_bytes_match(jax_build, torch_build):
+    jd, td = jax_build[0], torch_build[0]
+    assert tser.common_to_bytes(td.common) == jser.common_to_bytes(jd.common)
+    assert tser.verifier_only_to_bytes(td.verifier_only) == jser.verifier_only_to_bytes(
+        jd.verifier_only)
+
+
+def test_example_witness_matches(jax_build, torch_build):
+    (jd, jt), (td, tt) = jax_build, torch_build
+    jin, tin = jexample(), texample()
+    assert bytes(tin.public.root_hash) == bytes(jin.public.root_hash)
+    assert bytes(tin.public.nullifier) == bytes(jin.public.nullifier)
+    assert tin.private.storage_proof.proof == [] and tin.private.storage_proof.indices == []
+    jpw, tpw = JPW(), TPW()
+    jfill(jin, jpw, jt)
+    tfill(tin, tpw, tt)
+    jv, jk = jrun(jd.prover_only.plan, jpw)
+    tv, tk = trun(td.prover_only.plan, tpw)
+    assert np.array_equal(jk, tk)
     assert np.array_equal(jv, tv)
 
 
