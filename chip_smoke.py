@@ -16,24 +16,37 @@ Phases, in order:
            edge inputs;
   ntt      the kernels benchmark's 2^22 forward NTT through K3, checked
            against the plain four-step NTT and the host oracle;
-  prove    each circuit from its inputs through the staged device
-           pipeline: a first prove, then a warm one with its phases
-           timed by CUDA events and the kernel launches counted from 0
-           (every kernel must be launched), its proof's sha256 held to
-           the JAX package's; first the zk Wormhole, then one zk salt
-           draw timed on its own and held to the CPU's draw, then the
-           non-zk Wormhole and the voting proofs; then three more warm
-           proves of each Wormhole config in turn, on the host clock;
+  prove    each circuit from its inputs through the fused device
+           pipeline (the default path: one CUDA graph a circuit and
+           config, captured at the first prove): a first prove, with its
+           graph's warm-up and capture seconds and the device memory the
+           capture reserved, then a warm one with its phases timed by
+           CUDA events and the kernel launches counted from 0 (every
+           kernel must be launched, and the prove must be one graph
+           replay), its proof's sha256 held to the JAX package's; first
+           the zk Wormhole, with the host synchronisations of one more
+           warm prove counted, then one zk salt draw timed on its own and
+           held to the CPU's draw, then the non-zk Wormhole and the
+           voting proofs; then three more warm proves of each Wormhole
+           config in turn, on the host clock; then the zk Wormhole
+           through the staged pipeline (QZK_FUSED=0), first and warm,
+           with its phases and launches, at the same pin, and three
+           pairs of warm fused and staged proves in turn; then one warm
+           fused and one warm staged prove under torch.profiler, each
+           summarised (device time by kernel, busy time, idle share),
+           beside the CUDA-event time of one graph replay;
   aggregate  the recursion layer on the card: the square chunk proof,
            first and warm, its sha256 held to the JAX package's; a
            second zk Wormhole leaf (exit account 0x05..., the first is
            the zk Wormhole proof above); then aggregate_to_tree over the
            two as a (2, 1) tree, cold and then warm with its phases
            timed by CUDA events and the kernel launches counted from 0
-           (every kernel must be launched), its root's sha256 held to
-           the JAX package's, and the peak device memory of each; then
-           one zk salt draw at the chunk prove's shape, timed and held
-           to the CPU's draw;
+           (every kernel must be launched, the warm prove one graph
+           replay), its root's sha256 held to the JAX package's, and the
+           peak device memory of each; the same tree through the staged
+           pipeline at the same pin, and three pairs of warm fused and
+           staged trees in turn; then one zk salt draw at the chunk
+           prove's shape, timed and held to the CPU's draw;
   artifacts  the resume paths: write the non-zk Wormhole's common.bin,
            verifier.bin and prover.bin (generate_circuit_binaries), hold
            the first two to their sha256 pins, and time reading and
@@ -54,13 +67,16 @@ Phases, in order:
            public input; verify the square chunk proof and the (2, 1)
            root, parse the two leaves' public inputs back from the root,
            and reject the root with a tampered public input;
-  report   one JSON line of kernel times and bounds (`ms`: CUDA events
-           around 10 calls; K3 also `graph_ms`, over replays of a CUDA
-           graph; K1 and K3 also at every shape the warm zk prove
-           launched them with, summed as prove_ms, K3's from graph
-           replays, and the same for the non-zk prove as *_nonzk and for
-           the warm (2, 1) chunk prove as *_agg), the card's name and
-           power limit, and the final status line.
+  report   the device memory the graphs hold; one JSON line of kernel
+           times and bounds (`ms`: CUDA events around 10 calls; K3 also
+           `graph_ms`, over replays of a CUDA graph; K1 and K3 also at
+           every shape the warm zk prove launched them with, summed as
+           prove_ms, K3's from graph replays, and the same for the
+           non-zk prove as *_nonzk and for the warm (2, 1) chunk prove
+           as *_agg; K2 also at (1, 12), the device challenger's duplex,
+           beside that shape's dependent-chain bound, and summed over
+           the warm zk prove's launches), the card's name and power
+           limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
 Any failure ends the run with a non-zero exit code and no status line.
@@ -69,12 +85,15 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
@@ -85,9 +104,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from qzk_tpu_torch.benches.kernels import (  # noqa: E402
+    INT_MULS_PER_CLOCK_PER_SM,
     INT_MULS_PER_PERM,
     bound_ms,
     ntt_axis0_work,
+    peak_int_muls,
 )
 from qzk_tpu_torch.ops import goldilocks as gl  # noqa: E402
 from qzk_tpu_torch.ops import goldilocks_torch as gt  # noqa: E402
@@ -293,7 +314,8 @@ def phase_kernels(state) -> None:
         left, right = edge_rows(rng, 777, 4, dev), edge_rows(rng, 777, 4, dev)
         err["hash_rows"] = max(err["hash_rows"], require_equal(
             "K1 two_to_one", pc.two_to_one(left, right), pt.two_to_one_batch(left, right)))
-        for b in (1 << 18, 999):
+        # the PoW batch, a ragged batch, and the device challenger's duplex
+        for b in (1 << 18, 999, 1):
             s = edge_rows(rng, b, 12, dev)
             s[b // 2] = gt.from_u64(NONCANONICAL_OUTPUT_STATE, dev)
             got = pc.permute(s)
@@ -416,6 +438,14 @@ def time_kernels(state) -> list[dict]:
     k2_plain = cuda_ms(lambda: pt.permute(states), iters=2, warmup=1)
     k2_bytes = 2 * states.numel() * 8
     k2_ops = b * INT_MULS_PER_PERM
+    # K2 at (1, 12): each duplex of the device challenger, launched from
+    # the fused prove's graph
+    one = edge_rows(rng, 1, 12, dev)
+    k2_one = {"ms_1x12": cuda_ms(lambda: pc.permute(one)),
+              "graph_ms_1x12": graph_ms(lambda: pc.permute(one)),
+              "plain_ms_1x12": cuda_ms(lambda: pt.permute(one), iters=5, warmup=1),
+              "bound_ms_1x12": chain_bound_ms(),
+              "bound_by_1x12": "dependent chain"}
     plan = nfs.get_fourstep_cuda_plan(BENCH_LOG_N)
     tw2, twiddle, _ = plan.tables(dev, False)
     x = canonical_rows(rng, (1, plan.n2, plan.n1), dev)
@@ -435,7 +465,7 @@ def time_kernels(state) -> list[dict]:
             "library_ms": None, "shape": shape,
             "launches_by_path": {p: r["launches"][key] for p, r in
                                  {**state["runs"], **state["agg_runs"],
-                                  **state["artifact_runs"]}.items()},
+                                  **state["artifact_runs"], **state["staged_runs"]}.items()},
         }
 
     labels = {"": "zk", "_nonzk": "non-zk", "_agg": "(2, 1) chunk"}
@@ -457,18 +487,52 @@ def time_kernels(state) -> list[dict]:
              k3_bytes, k3_ops, [1, plan.n2, plan.n1])
     k3["graph_ms"] = k3_graph_ms
     add_per_prove(k3, k3_prove)
-    return [
-        k1,
-        rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
-            "qzk_tpu/ops/poseidon_pallas.py:275", "permute", k2_ms, k2_plain,
-            k2_bytes, k2_ops, [b, 12]),
-        k3,
-    ]
+    k2 = rec("K2 permute", "qzk_tpu_torch/ops/csrc/poseidon.cu",
+             "qzk_tpu/ops/poseidon_pallas.py:275", "permute", k2_ms, k2_plain,
+             k2_bytes, k2_ops, [b, 12])
+    k2.update(k2_one)
+    # per warm fused prove: one 2^18 PoW batch and a (1, 12) launch for
+    # each duplex, the duplexes replayed from the graph
+    for tag, name in (("", "wormhole_zk"), ("_agg", "agg_2_1")):
+        duplexes = state["graphs"][name]["duplexes"]
+        k2[f"duplexes{tag}"] = duplexes
+        k2[f"prove_ms{tag}"] = k2_ms + duplexes * k2_one["graph_ms_1x12"]
+        k2[f"prove_bound_ms{tag}"] = k2["bound_ms"] + duplexes * k2_one["bound_ms_1x12"]
+        log(f"K2 per warm {labels[tag]} fused prove: 1 batch of 2^18 and {duplexes} duplexes at "
+            f"(1, 12), {k2[f'prove_ms{tag}']:.4f} ms (bound {k2[f'prove_bound_ms{tag}']:.4f} ms)")
+    return [k1, k2, k3]
+
+
+# The bound of one permutation in one thread (K2 at (1, 12)) is its
+# dependent chain, not a throughput: 30 rounds, each at least three
+# dependent field multiplies in the S-box (x^2, x^4 = (x^2)^2, x^7 =
+# x^4 * x^3), each at least two dependent 32-bit multiply-adds (a partial
+# product, then the reduction's), and one more for the MDS layer's sum;
+# at 4 clocks a dependent integer multiply-add and the clock that
+# benches/kernels.py's peak_int_muls reads.
+CHAIN_IMADS = 30 * (3 * 2 + 1)
+IMAD_LATENCY_CLOCKS = 4
+
+
+def chain_bound_ms() -> float:
+    clock_hz = peak_int_muls() / (INT_MULS_PER_CLOCK_PER_SM
+                                  * torch.cuda.get_device_properties(0).multi_processor_count)
+    return CHAIN_IMADS * IMAD_LATENCY_CLOCKS / clock_hz * 1e3
 
 
 # The circuits the run proves: the zk Wormhole is the main path.
 PATHS = ("wormhole_zk", "wormhole_nonzk", "voting_nonzk", "voting_zk")
 KERNELS = ("hash_rows", "permute", "ntt_axis0")
+
+
+def _pins() -> dict:
+    from qzk_tpu_torch.models.voting import fixtures as vfix
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+
+    return {"wormhole_zk": wfix.WORMHOLE_ZK_PROOF_SHA256,
+            "wormhole_nonzk": wfix.WORMHOLE_NONZK_PROOF_SHA256,
+            "voting_nonzk": vfix.VOTING_NONZK_PROOF_SHA256,
+            "voting_zk": vfix.VOTING_ZK_PROOF_SHA256}
 
 
 def phase_circuit(state) -> None:
@@ -563,32 +627,172 @@ def launch_text(launches) -> str:
             f"K3 {launches['ntt_axis0']}")
 
 
+@contextlib.contextmanager
+def qzk_fused(flag: str):
+    """QZK_FUSED set to `flag` inside the block ("0": the staged path)."""
+    old = os.environ.get("QZK_FUSED")
+    os.environ["QZK_FUSED"] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["QZK_FUSED"]
+        else:
+            os.environ["QZK_FUSED"] = old
+
+
+def fused_graph(prover_only, zk: bool):
+    """(the fused pipeline's CUDA graph, the context) of a circuit on the
+    card."""
+    from qzk_tpu_torch.plonk import device_prover as dp
+
+    ctx = prover_only._torch_ctxs[str(dp.context_device("cuda"))]
+    return ctx._full_fns[zk], ctx
+
+
+def log_capture(state, name, prover_only, zk) -> None:
+    """Logs and records the capture of a circuit's fused graph."""
+    graph, ctx = fused_graph(prover_only, zk)
+    state["graphs"][name] = {"warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+                             "reserved_growth": graph.reserved_growth,
+                             "duplexes": ctx.duplexes[zk]}
+    log(f"graph {name}: eager warm-up {graph.warmup_s:.3f} s, capture {graph.capture_s:.3f} s, "
+        f"torch.cuda.memory_reserved grew {graph.reserved_growth / 2**30:.3f} GiB over the "
+        f"capture; {ctx.duplexes[zk]} challenger duplexes a prove")
+
+
+def one_replay(prover_only, zk: bool, name: str):
+    """fn -> fn's result, holding that fn replayed the circuit's graph
+    exactly once."""
+    graph, _ = fused_graph(prover_only, zk)
+
+    def run(fn):
+        before = graph.replays
+        out = fn()
+        if graph.replays - before != 1:
+            raise AssertionError(f"{name}: {graph.replays - before} graph replays, not 1")
+        log(f"{name}: 1 graph replay in the warm prove")
+        return out
+    return run
+
+
+def count_syncs(fn) -> int:
+    """The synchronising CUDA calls that fn() makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def drive(state, name) -> None:
     """Prove circuit `name` once, then once warm with its phases timed
     and the kernel launches counted from 0; every kernel must have been
-    launched and the proof's sha256 must be the JAX package's."""
-    from qzk_tpu_torch.models.voting import fixtures as vfix
-    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    launched, the warm prove must be one graph replay and the proof's
+    sha256 must be the JAX package's."""
     from qzk_tpu_torch.plonk.prover import PhaseTimer
 
-    pins = {"wormhole_zk": wfix.WORMHOLE_ZK_PROOF_SHA256,
-            "wormhole_nonzk": wfix.WORMHOLE_NONZK_PROOF_SHA256,
-            "voting_nonzk": vfix.VOTING_NONZK_PROOF_SHA256,
-            "voting_zk": vfix.VOTING_ZK_PROOF_SHA256}
     prove = prover_of(state, name)
-    with Phase(f"prove {name} (first, includes per-circuit device setup)"):
+    data = state["circuits"][name][0]
+    zk = data.common.config.zero_knowledge
+    with Phase(f"prove {name} (first, includes per-circuit device setup and graph capture)"):
         prove()
+    log_capture(state, name, data.prover_only, zk)
     timer = PhaseTimer(cuda_events=True)
     with Phase(f"prove {name} (warm)") as ph:
-        proof, launches = counted(name, lambda: prove(timer))
-    state["runs"][name] = {
-        "proof": proof, "prove": prove, "launches": launches, "seconds": ph.seconds,
+        proof, launches = one_replay(data.prover_only, zk, name)(
+            lambda: counted(name, lambda: prove(timer)))
+    record_run(state["runs"], name, proof, prove, launches, ph.seconds, timer)
+    require_pin(f"prove {name}: proof", proof, _pins()[name])
+
+
+def record_run(runs, name, proof, prove, launches, seconds, timer) -> None:
+    runs[name] = {
+        "proof": proof, "prove": prove, "launches": launches, "seconds": seconds,
         "k1_shapes": Counter(pc.K1_SHAPES), "k3_shapes": Counter(nc.K3_SHAPES),
     }
     for phase, ms in timer.results():
         log(f"  prove {name} phase {phase}: {ms / 1e3:.4f} s")
-    log(f"prove {name}: {ph.seconds:.3f} s; {launch_text(launches)}")
-    require_pin(f"prove {name}: proof", proof, pins[name])
+    log(f"prove {name}: {seconds:.3f} s; {launch_text(launches)}")
+
+
+def drive_staged(state, name) -> None:
+    """The staged pipeline (QZK_FUSED=0) on circuit `name`: a first
+    prove, then a warm one with its phases and launches; same pin."""
+    from qzk_tpu_torch.plonk.prover import PhaseTimer
+
+    prove = prover_of(state, name)
+    staged = f"{name}_staged"
+    with qzk_fused("0"):
+        with Phase(f"prove {staged} (first)"):
+            prove()
+        timer = PhaseTimer(cuda_events=True)
+        with Phase(f"prove {staged} (warm)") as ph:
+            proof, launches = counted(staged, lambda: prove(timer))
+    record_run(state["staged_runs"], staged, proof, prove, launches, ph.seconds, timer)
+    require_pin(f"prove {staged}: proof", proof, _pins()[name])
+
+
+def alternate(label: str, fused, staged, pairs: int = 3) -> dict:
+    """`pairs` pairs of warm fused and staged calls in turn (fused,
+    staged, staged, fused, ...), each on the host clock between two
+    synchronizes.  Logs and returns the seconds of each path."""
+    times = {"fused": [], "staged": []}
+    order = []
+    for i in range(pairs):
+        order += [("fused", fused), ("staged", staged)][:: 1 if i % 2 == 0 else -1]
+    for path, fn in order:
+        with qzk_fused("1" if path == "fused" else "0"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[path].append(time.perf_counter() - t0)
+    for path, ts in times.items():
+        log(f"{label} {path} (warm, host clock, in turn): " + ", ".join(f"{t:.4f}" for t in ts)
+            + " s")
+    return times
+
+
+def profile_pair(state) -> None:
+    """One warm fused and one warm staged zk Wormhole prove under
+    torch.profiler, each summarised; beside them the CUDA-event time of
+    one replay of the zk Wormhole graph."""
+    from qzk_tpu_torch.tools import profile_prover as prof
+
+    prove = state["runs"]["wormhole_zk"]["prove"]
+    data = state["circuits"]["wormhole_zk"][0]
+    graph, _ = fused_graph(data.prover_only, True)
+    dev = torch.device("cuda")
+    summaries = {}
+    with Phase("profile (torch.profiler, one warm zk prove a path)"), \
+            tempfile.TemporaryDirectory(prefix="qzk_profile_") as tmp:
+        for path in ("fused", "staged"):
+            with qzk_fused("1" if path == "fused" else "0"):
+                trace = os.path.join(tmp, f"prove_{path}.json")
+                t0 = time.perf_counter()
+                seconds = prof.profile_prove(prove, trace, dev)
+                t1 = time.perf_counter()
+            summaries[path] = prof.summarize(trace, top=12, out=lambda line: log("  " + line))
+            log(f"profile {path}: {seconds:.4f} s on the host clock under the profiler; "
+                f"profile and export {t1 - t0:.3f} s, a {os.path.getsize(trace)}-byte trace, "
+                f"parsed in {time.perf_counter() - t1:.3f} s")
+        replay_ms = cuda_ms(graph.graph.replay, iters=5, warmup=1)
+    if summaries["fused"]["kernels"] == 0:
+        log("profile fused: the trace shows no kernel launched by the graph replay")
+    log(f"profile: one replay of the zk Wormhole graph {replay_ms:.4f} ms (CUDA events, mean of "
+        f"5); staged prove device busy {summaries['staged']['busy_ms']:.4f} ms of "
+        f"{summaries['staged']['window_ms']:.4f} ms (idle share "
+        f"{summaries['staged']['idle_share']:.4f}); fused busy "
+        f"{summaries['fused']['busy_ms']:.4f} ms of {summaries['fused']['window_ms']:.4f} ms "
+        f"(idle share {summaries['fused']['idle_share']:.4f})")
+    log(json.dumps({"profiles": {p: {k: v for k, v in r.items() if k != "by_name"}
+                                 for p, r in summaries.items()}, "replay_ms": replay_ms}))
 
 
 def time_salt_draw(common) -> None:
@@ -606,8 +810,12 @@ def time_salt_draw(common) -> None:
 
 
 def phase_prove(state) -> None:
-    state["runs"] = {}
+    state["runs"], state["staged_runs"], state["graphs"] = {}, {}, {}
     drive(state, "wormhole_zk")
+    syncs = count_syncs(state["runs"]["wormhole_zk"]["prove"])
+    state["syncs"] = {"wormhole_zk": syncs}
+    log(f"prove wormhole_zk: {syncs} synchronising CUDA calls in one warm fused prove "
+        f"(torch.cuda.set_sync_debug_mode)")
     time_salt_draw(state["common"])
     for name in PATHS[1:]:
         drive(state, name)
@@ -622,26 +830,38 @@ def phase_prove(state) -> None:
                 times.append(time.perf_counter() - t0)
     for name, times in spread.items():
         log(f"prove spread {name}: " + ", ".join(f"{t:.4f}" for t in times) + " s")
+    drive_staged(state, "wormhole_zk")
+    prove = state["runs"]["wormhole_zk"]["prove"]
+    with Phase("fused against staged, zk Wormhole"):
+        state["alternate"] = {"wormhole_zk": alternate("prove wormhole_zk", prove, prove)}
+    profile_pair(state)
 
 
-def prove_chunk_timed(state, name, prove):
+def prove_chunk_timed(state, name, prove, chunk=None, runs=None):
     """prove(timer) once, then once warm with its phases timed by CUDA
     events and the kernel launches counted from 0; every kernel must
-    have been launched.  Records the run under state["agg_runs"][name]
-    and returns the warm result."""
+    have been launched, and a warm fused prove of `chunk`'s circuit must
+    be one graph replay.  Records the run under runs[name]
+    (state["agg_runs"] by default) and returns the warm result."""
     from qzk_tpu_torch.plonk.prover import PhaseTimer
 
+    runs = state["agg_runs"] if runs is None else runs
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with Phase(f"aggregate {name} (first, includes per-circuit device setup)"):
         prove(None)
     cold_peak = torch.cuda.max_memory_allocated()
+    replay_once = lambda fn: fn()  # noqa: E731
+    if chunk is not None:
+        zk = chunk.data.common.config.zero_knowledge
+        log_capture(state, name, chunk.data.prover_only, zk)
+        replay_once = one_replay(chunk.data.prover_only, zk, name)
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer(cuda_events=True)
     with Phase(f"aggregate {name} (warm)") as ph:
-        out, launches = counted(name, lambda: prove(timer))
+        out, launches = replay_once(lambda: counted(name, lambda: prove(timer)))
     peak = torch.cuda.max_memory_allocated()
-    state["agg_runs"][name] = {
+    runs[name] = {
         "launches": launches, "k1_shapes": Counter(pc.K1_SHAPES),
         "k3_shapes": Counter(nc.K3_SHAPES),
     }
@@ -650,7 +870,7 @@ def prove_chunk_timed(state, name, prove):
     log(f"aggregate {name}: {ph.seconds:.3f} s; {launch_text(launches)}; peak device memory "
         f"{cold_peak / 2**30:.3f} GiB first, {peak / 2**30:.3f} GiB warm "
         f"(torch.cuda.max_memory_allocated), of which {resident / 2**30:.3f} GiB were "
-        f"allocated before (the earlier circuits' contexts and proofs)")
+        f"allocated before (the earlier circuits' contexts, graphs and proofs)")
     return out
 
 
@@ -669,7 +889,7 @@ def phase_aggregate(state) -> None:
     pw.set_target(x, 5)
     child = sq_data.prove(pw, device="cuda")
     sq = prove_chunk_timed(state, "square_chunk", lambda timer: agg._prove_chunk(
-        sq_chunk, [child], sq_data.verifier_only, "cuda", timer))
+        sq_chunk, [child], sq_data.verifier_only, "cuda", timer), chunk=sq_chunk)
     require_pin("square chunk proof", sq.proof, wfix.SQUARE_CHUNK_PROOF_SHA256)
 
     data, targets = state["circuits"]["wormhole_zk"]
@@ -680,9 +900,23 @@ def phase_aggregate(state) -> None:
     leaves = [state["runs"]["wormhole_zk"]["proof"], leaf]
     state["leaves"] = leaves
     tree = agg.TreeAggregationConfig.new(2, 1)
-    root = prove_chunk_timed(state, "agg_2_1", lambda timer: agg.aggregate_to_tree(
-        leaves, data.common, data.verifier_only, tree, device="cuda", timer=timer))
+
+    def aggregate(timer=None):
+        return agg.aggregate_to_tree(leaves, data.common, data.verifier_only, tree,
+                                     device="cuda", timer=timer)
+
+    root = prove_chunk_timed(state, "agg_2_1", aggregate, chunk=state["chunks"]["agg_2_1"])
     require_pin("(2, 1) aggregation root", root.proof, wfix.AGG_2_1_ZK_ROOT_SHA256)
+    syncs = count_syncs(aggregate)
+    state["syncs"]["agg_2_1"] = syncs
+    log(f"aggregate agg_2_1: {syncs} synchronising CUDA calls in one warm fused tree "
+        f"(torch.cuda.set_sync_debug_mode)")
+    with qzk_fused("0"):
+        staged = prove_chunk_timed(state, "agg_2_1_staged", aggregate,
+                                   runs=state["staged_runs"])
+    require_pin("(2, 1) aggregation root, staged", staged.proof, wfix.AGG_2_1_ZK_ROOT_SHA256)
+    with Phase("fused against staged, (2, 1) tree"):
+        state["alternate"]["agg_2_1"] = alternate("aggregate agg_2_1", aggregate, aggregate)
     time_salt_draw(root.circuit_data.common)
     state["agg_runs"]["square_chunk"]["result"] = sq
     state["agg_runs"]["agg_2_1"]["result"] = root
@@ -893,6 +1127,12 @@ def verify_aggregation(state) -> bool:
 
 
 def phase_report(state) -> None:
+    graphs = state["graphs"]
+    log(f"graphs: {len(graphs)} captured; memory_reserved growth over their captures "
+        f"{sum(g['reserved_growth'] for g in graphs.values()) / 2**30:.3f} GiB in all; "
+        f"torch.cuda.memory_reserved now {torch.cuda.memory_reserved() / 2**30:.3f} GiB, "
+        f"max {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB")
+    log(json.dumps({"graphs": graphs, "syncs": state["syncs"], "alternate": state["alternate"]}))
     with Phase("report"):
         kernels = time_kernels(state)
     log(json.dumps({"kernels": kernels}))

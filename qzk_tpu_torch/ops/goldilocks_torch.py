@@ -246,8 +246,8 @@ def ext_inverse_vec(a):
 
 def ext_powers(z, n: int):
     """[z^0 .. z^(n-1)] as (n, 2) for a (2,) extension scalar z."""
-    pows = torch.zeros((1, 2), dtype=torch.int64, device=z.device)
-    pows[0, 0] = 1
+    pows = torch.nn.functional.pad(torch.ones((1, 1), dtype=torch.int64, device=z.device),
+                                   (0, 1))  # [[1, 0]], built on the device
     z_len = z.reshape(1, 2)
     while pows.shape[0] < n:
         pows = torch.cat([pows, ext_mul(pows, z_len.expand(pows.shape))])

@@ -194,12 +194,13 @@ class NTTPlan:
                 torch.as_tensor(self.rev, device=device),
                 [gt.from_u64(t, device) for t in self.stage_tw],
                 torch.as_tensor(self._rev_idx, device=device),
+                gt.scalar(self.n_inv, device),
             )
         return self._dev[key]
 
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         n = self.n
-        rev, stage_tw, _ = self._tables(x.device)
+        rev, stage_tw, _, _ = self._tables(x.device)
         x = x.index_select(-1, rev)
         for s in range(1, self.log_n + 1):
             half = 1 << (s - 1)
@@ -212,8 +213,8 @@ class NTTPlan:
         return x
 
     def intt(self, evals: torch.Tensor) -> torch.Tensor:
-        y = self.ntt(evals).index_select(-1, self._tables(evals.device)[2])
-        return gt.mul(y, gt.scalar(self.n_inv, y.device))
+        _, _, rev_idx, n_inv = self._tables(evals.device)
+        return gt.mul(self.ntt(evals).index_select(-1, rev_idx), n_inv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,14 +9,16 @@ version in ``ntt_torch.py``.  The input may be row-major or the
 transpose of a row-major tensor (the second four-step pass reads one in
 place).  ``LAUNCHES`` counts kernel launches, and nothing else;
 ``K3_SHAPES`` counts them by (b, log_n, m, strided, twiddle), so that a
-run can time K3 at every shape a prove gave it.  The library loads, and
-the counts move, under a lock: the aggregator proves chunks from
-several threads.
+run can time K3 at every shape a prove gave it; under CUDA graph
+capture, ``recording()`` and ``count_replay`` as in poseidon_cuda.py.
+The library loads, and the counts move, under a lock: the aggregator
+proves chunks from several threads.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import os
@@ -32,6 +34,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LAUNCHES = {"ntt_axis0": 0}
 K3_SHAPES: collections.Counter = collections.Counter()
 _LOCK = threading.Lock()
+# thread id -> the Counter of an active recording()
+_RECORDING: dict = {}
 
 # The block size a tile grows to.
 TARGET_THREADS = 128
@@ -46,8 +50,38 @@ def reset_launches() -> None:
 
 def _count(key: str, k3_shape) -> None:
     with _LOCK:
+        rec = _RECORDING.get(threading.get_ident())
+        if rec is not None:  # captured into a CUDA graph: no launch yet
+            rec[(key, k3_shape)] += 1
+            return
         LAUNCHES[key] += 1
         K3_SHAPES[k3_shape] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Records, and does not count, the launches this thread makes in
+    the block: under CUDA graph capture a wrapper's call launches
+    nothing.  Yields a Counter of (key, shape) for count_replay."""
+    rec: collections.Counter = collections.Counter()
+    tid = threading.get_ident()
+    with _LOCK:
+        _RECORDING[tid] = rec
+    try:
+        yield rec
+    finally:
+        with _LOCK:
+            del _RECORDING[tid]
+
+
+def count_replay(rec: collections.Counter) -> None:
+    """Counts the launches of one replay of a graph whose capture
+    recorded `rec`."""
+    with _LOCK:
+        for (key, shape), n in rec.items():
+            LAUNCHES[key] += n
+            if shape is not None:
+                K3_SHAPES[shape] += n
 
 
 class _Kernel:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import device_constant
 from . import goldilocks as gl
 from . import goldilocks_torch as gt
 from .ntt import bit_reverse_perm, powers, root_of_unity
@@ -45,7 +46,8 @@ def ntt_axis0(
     stage_tw_table(log_n) as an int64 tensor on x's device."""
     n = x.shape[-2]
     log_n = n.bit_length() - 1
-    rev = torch.as_tensor(bit_reverse_perm(log_n), device=x.device)
+    rev = device_constant(("bit_reverse", log_n), x.device,
+                          lambda: torch.as_tensor(bit_reverse_perm(log_n), device=x.device))
     y = x.index_select(-2, rev)
     lead, m = y.shape[:-2], y.shape[-1]
     for s in range(1, log_n + 1):

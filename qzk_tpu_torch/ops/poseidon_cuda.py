@@ -11,13 +11,17 @@ holding uint64 bit patterns, as everywhere in the port: the kernels
 stage their reads through shared memory, so no transposed copy is made.
 ``LAUNCHES`` counts kernel launches, and nothing else; ``K1_SHAPES``
 counts K1's launches by (n, w), so that a run can time K1 at every
-shape a prove gave it.  The library loads, and the counts move, under a
-lock: the aggregator proves chunks from several threads.
+shape a prove gave it.  A call under CUDA graph capture launches
+nothing: inside ``recording()`` it is recorded, and ``count_replay``
+counts the recorded launches at each replay of the graph.  The library
+loads, and the counts move, under a lock: the aggregator proves chunks
+from several threads.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import threading
@@ -33,6 +37,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LAUNCHES = {"hash_rows": 0, "permute": 0}
 K1_SHAPES: collections.Counter = collections.Counter()
 _LOCK = threading.Lock()
+# thread id -> the Counter of an active recording()
+_RECORDING: dict = {}
 
 
 def reset_launches() -> None:
@@ -44,9 +50,39 @@ def reset_launches() -> None:
 
 def _count(key: str, k1_shape=None) -> None:
     with _LOCK:
+        rec = _RECORDING.get(threading.get_ident())
+        if rec is not None:  # captured into a CUDA graph: no launch yet
+            rec[(key, k1_shape)] += 1
+            return
         LAUNCHES[key] += 1
         if k1_shape is not None:
             K1_SHAPES[k1_shape] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Records, and does not count, the launches this thread makes in
+    the block: under CUDA graph capture a wrapper's call launches
+    nothing.  Yields a Counter of (key, shape) for count_replay."""
+    rec: collections.Counter = collections.Counter()
+    tid = threading.get_ident()
+    with _LOCK:
+        _RECORDING[tid] = rec
+    try:
+        yield rec
+    finally:
+        with _LOCK:
+            del _RECORDING[tid]
+
+
+def count_replay(rec: collections.Counter) -> None:
+    """Counts the launches of one replay of a graph whose capture
+    recorded `rec`."""
+    with _LOCK:
+        for (key, shape), n in rec.items():
+            LAUNCHES[key] += n
+            if shape is not None:
+                K1_SHAPES[shape] += n
 
 
 class _Kernels:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import device_constant
 from . import goldilocks_torch as gt
 from .poseidon import CAP, HALF_FULL, MDS_MATRIX, N_PARTIAL_ROUNDS, RATE, WIDTH, _RC
 
@@ -20,9 +21,12 @@ _M32 = 0xFFFFFFFF
 
 
 def _tables(device):
-    rc = gt.from_u64(_RC, device)  # (30, 12)
-    mds = torch.as_tensor(MDS_MATRIX.astype("int64"), device=device)
-    return rc, mds
+    """The round constants (30, 12) and the MDS matrix on `device`."""
+    return (
+        device_constant("poseidon_rc", device, lambda: gt.from_u64(_RC, device)),
+        device_constant("poseidon_mds", device,
+                        lambda: torch.as_tensor(MDS_MATRIX.astype("int64"), device=device)),
+    )
 
 
 def _sbox(x):

@@ -1,35 +1,52 @@
-"""Device-resident staged prove pipeline (torch; CUDA kernels on the card).
+"""Device-resident prove pipeline (torch; CUDA kernels on the card).
 
-Same protocol as the JAX package's staged ``device_prove``
+Same protocol as the JAX package's ``device_prove``
 (qzk_tpu/plonk/device_prover.py), and byte-identical proofs: identical
-transcripts, commitments and FRI queries.  Every heavy phase stays on
-the device between transcript interactions:
+transcripts, commitments and FRI queries.  Two paths:
 
-  wires        -> [iNTT -> coset LDE -> Merkle levels]
-  betas/gammas -> [permutation Zs -> LDE -> Merkle levels]
-  alphas       -> [vanishing eval -> /Z_H -> quotient coeffs
-                   -> LDE -> Merkle levels + degree check]
-  zeta         -> [openings at zeta / g*zeta]
-  fri alpha    -> [FRI input polynomial G]
-  FRI commit:  per layer [leaves + levels] and [fold]
-  PoW grind on the device; query-round data gathered on the device.
+  fused (the default): ``full_pipeline`` runs the whole post-witness
+    prove as one function of the uploaded wire matrix, the public-input
+    hash and the three zk salts: wires commit, the Fiat-Shamir
+    transcript on the device (DeviceChallenger), zs, quotient,
+    openings, FRI input, FRI layers, the final polynomial, the first
+    PoW batch, the query indices and every query gather.  On the card
+    it is one CUDA graph replay a prove (captured once per context and
+    config); on the CPU the same function runs eagerly.  One download
+    follows.  ``_fused_prove`` rebuilds the host challenger from the
+    device's, checks the PoW witness and the query indices against it,
+    and grinds on the host only when the batch held no PoW hit.
+  staged (QZK_FUSED=0): the host keeps the challenger
+    (ops/transcript.py) and downloads each cap, the openings, the FRI
+    final polynomial and the query rounds as the transcript needs them:
 
-The host keeps the Fiat-Shamir challenger (ops/transcript.py) and
-downloads only caps, openings, the FRI final polynomial and the query
-rounds' leaves and paths.  Merkle hashing runs on the CUDA row sponge
-(K1) and the PoW grind on the CUDA permutation (K2), through
-ops/poseidon_cuda.py; every iNTT and coset LDE is the four-step
-transform on the CUDA NTT kernel (K3), through ops/ntt_fourstep.py; the
-rest is torch tensor code on int64 bit patterns
-(ops/goldilocks_torch.py).  Under zero knowledge the wires, zs and
-quotient leaves carry four salt columns each (the preprocessed tree
-none), which the FRI batches skip and the query openings carry.
+      wires        -> [iNTT -> coset LDE -> Merkle levels]
+      betas/gammas -> [permutation Zs -> LDE -> Merkle levels]
+      alphas       -> [vanishing eval -> /Z_H -> quotient coeffs
+                       -> LDE -> Merkle levels + degree check]
+      zeta         -> [openings at zeta / g*zeta]
+      fri alpha    -> [FRI input polynomial G]
+      FRI commit:  per layer [leaves + levels] and [fold]
+      PoW grind on the device; query-round data gathered on the device.
+
+Merkle hashing runs on the CUDA row sponge (K1) and every permutation
+(the PoW batch, the device challenger's duplexes) on the CUDA
+permutation (K2), through ops/poseidon_cuda.py; every iNTT and coset LDE
+is the four-step transform on the CUDA NTT kernel (K3), through
+ops/ntt_fourstep.py; the rest is torch tensor code on int64 bit patterns
+(ops/goldilocks_torch.py).  The stages upload nothing while they run:
+the constants they need are the context's, or per-device tables built
+at first use (utils/device.py::device_constant).  Under zero knowledge
+the wires, zs and quotient leaves carry four salt columns each (the
+preprocessed tree none), which the FRI batches skip and the query
+openings carry.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,8 +56,10 @@ from ..ops import goldilocks as gl
 from ..ops import goldilocks_torch as gt
 from ..ops import merkle as mk
 from ..ops import ntt as ntt_mod
+from ..ops import ntt_cuda as nc
 from ..ops import ntt_fourstep as nfs
 from ..ops import poseidon_cuda as pc
+from ..ops.poseidon import RATE, WIDTH
 from ..ops.transcript import Challenger
 from . import fri as fri_mod
 from .proof import (
@@ -53,6 +72,16 @@ from .proof import (
     ProofWithPublicInputs,
 )
 from .vanishing import eval_vanishing_torch
+
+
+def _gather_tree(leaves, levels, idx):
+    """Device (Q,) indices -> (leaves (Q, w), paths (Q, depth, 4)): each
+    row and its siblings through the non-cap levels."""
+    rows = leaves[idx]
+    sibs = [levels[lv][(idx >> lv) ^ 1] for lv in range(len(levels) - 1)]
+    if not sibs:
+        return rows, torch.zeros((idx.shape[0], 0, 4), dtype=torch.int64, device=idx.device)
+    return rows, torch.stack(sibs, dim=1)
 
 
 @dataclass
@@ -70,14 +99,194 @@ class DeviceTree:
         return cls(leaves=leaves, levels=levels, cap=gt.to_u64(levels[-1]))
 
     def gather_queries(self, idx: np.ndarray):
-        """(Q,) indices -> (leaves (Q, w), paths (Q, depth, 4)) on the
-        device: each row and its siblings through the non-cap levels."""
+        """(Q,) host indices -> (leaves (Q, w), paths (Q, depth, 4)) on
+        the device."""
         i = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=self.leaves.device)
-        rows = self.leaves[i]
-        sibs = [self.levels[l][(i >> l) ^ 1] for l in range(len(self.levels) - 1)]
-        if not sibs:
-            return rows, torch.zeros((i.shape[0], 0, 4), dtype=torch.int64, device=i.device)
-        return rows, torch.stack(sibs, dim=1)
+        return _gather_tree(self.leaves, self.levels, i)
+
+
+class DeviceChallenger:
+    """The host Challenger (ops/transcript.py) on the device: the same
+    duplex sponge, observation for observation, so that the whole prove
+    needs no host round trip for a challenge.
+
+    The state is a (12,) int64 tensor; the buffers' lengths are Python
+    counts, fixed by the circuit's transcript schedule.  The input
+    buffer is a list of 1-d tensors of `n_in` elements in all; the
+    output buffer is always state[:n_out] (a duplex fills it, an
+    observation empties it, a challenge pops its last element).  Every
+    duplex is one permutation: K2 at (1, 12) on the card, the plain
+    torch permutation on the CPU.  Counterpart of the JAX package's
+    DeviceChallenger (qzk_tpu/plonk/device_prover.py:101-171), which
+    absorbs element by element; this one absorbs a tensor in chunks of
+    up to RATE elements, the same duplex schedule."""
+
+    def __init__(self, device):
+        self.state = gt.zeros(WIDTH, device)
+        self.input_buf: list = []
+        self.n_in = 0
+        self.n_out = 0
+        self.duplexes = 0
+
+    def fork(self) -> "DeviceChallenger":
+        other = DeviceChallenger.__new__(DeviceChallenger)
+        other.state = self.state  # never written in place
+        other.input_buf = list(self.input_buf)
+        other.n_in, other.n_out, other.duplexes = self.n_in, self.n_out, 0
+        return other
+
+    def observe_element(self, e) -> None:
+        self.observe_elements(e)
+
+    def observe_elements(self, arr) -> None:
+        flat = arr.reshape(-1)
+        n, pos = flat.shape[0], 0
+        while pos < n:
+            take = min(RATE - self.n_in, n - pos)
+            self.input_buf.append(flat[pos : pos + take])
+            self.n_in += take
+            self.n_out = 0
+            pos += take
+            if self.n_in == RATE:
+                self._duplex()
+
+    def observe_cap(self, cap) -> None:
+        self.observe_elements(cap)
+
+    def pending(self) -> torch.Tensor:
+        """The input buffer as one (n_in,) tensor."""
+        if len(self.input_buf) == 1:
+            return self.input_buf[0]
+        if not self.input_buf:
+            return self.state.new_zeros(0)
+        return torch.cat(self.input_buf)
+
+    def _duplex(self) -> None:
+        state = self.state
+        if self.n_in:
+            state = torch.cat([self.pending(), state[self.n_in :]])
+            self.input_buf, self.n_in = [], 0
+        self.state = pc.permute(state.reshape(1, WIDTH)).reshape(WIDTH)
+        self.n_out = RATE
+        self.duplexes += 1
+
+    def get_challenge(self) -> torch.Tensor:
+        """A 0-d tensor."""
+        if self.n_in or not self.n_out:
+            self._duplex()
+        self.n_out -= 1
+        return self.state[self.n_out]
+
+    def get_n_challenges(self, n: int) -> torch.Tensor:
+        return torch.stack([self.get_challenge() for _ in range(n)])
+
+    def get_extension_challenge(self) -> torch.Tensor:
+        c0 = self.get_challenge()
+        c1 = self.get_challenge()
+        return torch.stack([c0, c1])
+
+    def export(self):
+        """(state (12,), input buffer (n_in,), output buffer (n_out,)):
+        what the host Challenger is rebuilt from."""
+        return self.state, self.pending(), self.state[: self.n_out]
+
+
+def _ext_reduce(claims, apows):
+    """sum_i claims[i] * alpha^i over (S, 2) extension vectors."""
+    prod = gt.ext_mul(claims, apows)
+    return torch.stack([gt.sum_mod(prod[:, 0], axis=0), gt.sum_mod(prod[:, 1], axis=0)])
+
+
+# The fused graphs of a card share one memory pool, and their proves a
+# lock: a graph's intermediates are dead once its replay has ended, so a
+# later capture may reuse them, as long as no two graphs of the card
+# run at once.  Without sharing, each graph keeps its own pool of about
+# twice the eager prove's peak (22.6 GiB for a (2, 1) chunk circuit on
+# the H100), and eight resident contexts came to 68 of the card's 80 GB.
+_GRAPH_POOLS: dict = {}
+_DEVICE_LOCKS: dict = {}
+
+
+def _graph_pool(device: torch.device):
+    with _CTX_LOCK:
+        if device.index not in _GRAPH_POOLS:
+            _GRAPH_POOLS[device.index] = torch.cuda.graph_pool_handle()
+        return _GRAPH_POOLS[device.index]
+
+
+def _prove_lock(device: torch.device) -> threading.Lock:
+    """The lock a fused prove on `device` holds from its replay through
+    the last read of the graph's outputs: one a card, one a CPU
+    context."""
+    if device.type != "cuda":
+        return threading.Lock()
+    with _CTX_LOCK:
+        return _DEVICE_LOCKS.setdefault(device.index, threading.Lock())
+
+
+class FusedGraph:
+    """The fused pipeline of one context and config as one CUDA graph.
+
+    The first call copies its inputs into static buffers, runs the body
+    once eagerly on a side stream (the kernel libraries' first-use
+    set-up, such as qzk_poseidon_init's constant upload, cannot be
+    captured) and captures it; every call then copies its inputs into
+    the static buffers and replays.  The outputs are the capture's
+    tensors, overwritten by the next replay: the caller reads them
+    under the context's lock.  The kernel launches that the capture
+    recorded are counted at each replay (poseidon_cuda.count_replay,
+    ntt_cuda.count_replay).  The graph lives as long as this object,
+    which the context holds, in the card's shared pool (_graph_pool)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = None
+        self.replays = 0
+        self.warmup_s = self.capture_s = None
+        self.reserved_growth = None  # bytes, torch.cuda.memory_reserved
+
+    def __call__(self, body, wire_matrix, pi_hash, salts):
+        if self.graph is None:
+            self._capture(body, wire_matrix, pi_hash, salts)
+        for static, new in zip(self._inputs, (wire_matrix, pi_hash, *salts)):
+            if static is not None:
+                static.copy_(new)
+        self.graph.replay()
+        self.replays += 1
+        pc.count_replay(self._k12)
+        nc.count_replay(self._k3)
+        return self._out
+
+    def _capture(self, body, wire_matrix, pi_hash, salts) -> None:
+        dev = self.device
+        with torch.cuda.device(dev):
+            self._inputs = [None if t is None else t.clone()
+                            for t in (wire_matrix, pi_hash, *salts)]
+
+            def run():
+                wm, pi, *ss = self._inputs
+                return body(wm, pi, tuple(ss))
+
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.warmup_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with pc.recording() as k12, nc.recording() as k3:
+                with torch.cuda.graph(graph, pool=_graph_pool(dev),
+                                      capture_error_mode="thread_local"):
+                    out = run()
+            torch.cuda.synchronize(dev)
+            self.capture_s = time.perf_counter() - t0
+            self.reserved_growth = torch.cuda.memory_reserved(dev) - reserved
+        self.graph, self._out, self._k12, self._k3 = graph, out, k12, k3
 
 
 class DeviceProverContext:
@@ -85,7 +294,7 @@ class DeviceProverContext:
 
     Built on the first prove of a circuit on a device and cached on the
     ProverOnlyCircuitData; later proofs reuse the uploaded and derived
-    arrays."""
+    arrays, and the fused pipeline's CUDA graphs."""
 
     def __init__(self, common, prover_only, device: torch.device):
         self.common = common
@@ -128,6 +337,9 @@ class DeviceProverContext:
         self.ntt_n = nfs.get_fourstep_cuda_plan(common.degree_bits)
         self.ntt_m = nfs.get_fourstep_cuda_plan(common.lde_bits)
         self.shift_n = up(ntt_mod.powers(gl.GENERATOR, N))
+        # transcript constants of the fused pipeline
+        self.digest = up(np.asarray(common.circuit_digest, dtype=np.uint64))
+        self.g_ext = up(gl.ext(np.uint64(common.subgroup_generator()), np.uint64(0)))
 
         # --- one-time derivation of the big per-circuit arrays ----------
         self.pre_lde = nfs.coset_lde(self.pre_coeffs, rate_bits, self.shift_n)
@@ -149,6 +361,19 @@ class DeviceProverContext:
         gather[flat] = np.asarray(prover_only.slot_targets, dtype=np.int64)
         self._wire_gather = torch.as_tensor(gather, device=device)
 
+        # per-(M, arity, shift) FRI layer constants and per-(M, shift)
+        # final-polynomial shifts, uploaded at first use
+        self._fri_consts: dict = {}
+        self._final_consts: dict = {}
+        # the fused pipeline: the first PoW batch's candidates (2^18 on
+        # the card, as the JAX package's; 2^16 for the plain
+        # permutation on the CPU), the CUDA graph per zk flag, and the
+        # lock its static outputs are read under
+        self.pow_batch = 1 << (18 if device.type == "cuda" else 16)
+        self._full_fns: dict = {}
+        self.lock = _prove_lock(device)
+        self.duplexes: dict = {}  # zk flag -> the challenger's duplexes a prove
+
     # -- stages ---------------------------------------------------------------
 
     def assemble_wires(self, values: np.ndarray, blind=None) -> torch.Tensor:
@@ -166,20 +391,26 @@ class DeviceProverContext:
             wm[self._n_used :] = blind
         return wm
 
-    def _commit_leaves(self, lde_t: torch.Tensor, salt=None) -> DeviceTree:
-        """Merkle tree over the rows of `lde_t`, with the zk salt's four
-        columns appended to each leaf when there is one."""
+    def commit_leaves_raw(self, lde_t: torch.Tensor, salt=None):
+        """(leaves, Merkle levels) over the rows of `lde_t`, with the zk
+        salt's four columns appended to each leaf when there is one."""
         leaves = lde_t.contiguous() if salt is None else torch.cat([lde_t, salt], dim=1)
-        cap_height = self.common.config.fri_config.cap_height
-        return DeviceTree.from_levels(leaves, mk.build_merkle_levels(leaves, cap_height))
+        return leaves, mk.build_merkle_levels(leaves, self.common.config.fri_config.cap_height)
+
+    def _commit_leaves(self, lde_t: torch.Tensor, salt=None) -> DeviceTree:
+        return DeviceTree.from_levels(*self.commit_leaves_raw(lde_t, salt))
+
+    def commit_raw(self, values: torch.Tensor, salt=None):
+        """(S, N) subgroup values -> coeffs, (S, 8N) coset LDE, leaves
+        (salted under zero knowledge) and Merkle levels."""
+        coeffs = self.ntt_n.intt(values)
+        lde = nfs.coset_lde(coeffs, self.common.config.fri_config.rate_bits, self.shift_n)
+        return (coeffs, lde, *self.commit_leaves_raw(lde.T, salt))
 
     def commit(self, values: torch.Tensor, salt=None):
-        """(S, N) subgroup values -> coeffs, (S, 8N) coset LDE, tree
-        (salted leaves under zero knowledge)."""
-        common = self.common
-        coeffs = self.ntt_n.intt(values)
-        lde = nfs.coset_lde(coeffs, common.config.fri_config.rate_bits, self.shift_n)
-        return coeffs, lde, self._commit_leaves(lde.T, salt)
+        """commit_raw with the tree as a DeviceTree (its cap downloaded)."""
+        coeffs, lde, leaves, levels = self.commit_raw(values, salt)
+        return coeffs, lde, DeviceTree.from_levels(leaves, levels)
 
     def zs_stage(self, w_routed, betas, gammas):
         """(N, 80) routed wires -> (num_zs_pp, N) Z / partial-product
@@ -222,6 +453,9 @@ class DeviceProverContext:
         return torch.stack(rows)
 
     def quotient_stage(self, wires_lde, zs_lde, pi_hash, betas, gammas, alphas):
+        """-> quotient coeffs, quotient LDE, and tail_ok: a device bool,
+        true when the quotient's degree is within the bound (a witness
+        that satisfies the circuit)."""
         common = self.common
         cfg = common.config
         N = common.degree
@@ -244,7 +478,7 @@ class DeviceProverContext:
         deg_cap = cfg.max_quotient_degree_factor * N
         qv = gt.mul(torch.stack(vanishing), self.z_h_inv_full)
         q_coeffs = gt.mul(self.ntt_m.intt(qv), self.shift_inv_pows)
-        tail_ok = bool((q_coeffs[:, deg_cap - N :] == 0).all())
+        tail_ok = (q_coeffs[:, deg_cap - N :] == 0).all()
         quotient_coeffs = q_coeffs[:, :deg_cap].reshape(-1, N)
         quotient_lde = nfs.coset_lde(quotient_coeffs, cfg.fri_config.rate_bits, self.shift_n)
         return quotient_coeffs, quotient_lde, tail_ok
@@ -290,25 +524,31 @@ class DeviceProverContext:
         return gt.ext_add(G, G2)
 
     def fri_layer(self, M: int, arity_bits: int, shift: int, cap_h: int):
-        """(commit_layer, fold_layer) for one FRI layer shape."""
+        """(commit_layer, fold_layer, group) for one FRI layer shape:
+        commit_layer(values) -> (leaves, Merkle levels)."""
         A = 1 << arity_bits
-        W = gt.from_u64(fri_mod._fold_matrices(arity_bits), self.device)  # (A, A)
-        w_M = ntt_mod.root_of_unity(M.bit_length() - 1)
-        s_j_inv = gt.from_u64(
-            gl.mul(
-                np.uint64(pow(shift, gl.P - 2, gl.P)),
-                ntt_mod.powers(pow(w_M, gl.P - 2, gl.P), M // A),
-            ),
-            self.device,
-        )
+        key = (M, arity_bits, shift)
+        if key not in self._fri_consts:
+            w_M = ntt_mod.root_of_unity(M.bit_length() - 1)
+            self._fri_consts[key] = (
+                gt.from_u64(fri_mod._fold_matrices(arity_bits), self.device),  # (A, A)
+                gt.from_u64(
+                    gl.mul(
+                        np.uint64(pow(shift, gl.P - 2, gl.P)),
+                        ntt_mod.powers(pow(w_M, gl.P - 2, gl.P), M // A),
+                    ),
+                    self.device,
+                ),
+            )
+        W, s_j_inv = self._fri_consts[key]
 
         def group(values):
             # (M, 2) -> (M/A, A, 2): points sharing x^A (stride M/A)
             return values.reshape(A, M // A, 2).movedim(0, 1)
 
-        def commit_layer(values) -> DeviceTree:
+        def commit_layer(values):
             leaves = group(values).reshape(M // A, 2 * A).contiguous()
-            return DeviceTree.from_levels(leaves, mk.build_merkle_levels(leaves, cap_h))
+            return leaves, mk.build_merkle_levels(leaves, cap_h)
 
         def fold_layer(values, beta):
             groups = group(values)  # (M/A, A, 2)
@@ -329,11 +569,30 @@ class DeviceProverContext:
 
         return commit_layer, fold_layer, group
 
-    def grind_pow(self, challenger: Challenger, bits: int) -> int:
+    def final_poly(self, values: torch.Tensor, shift: int):
+        """The last FRI layer's (M, 2) values on the coset of `shift` ->
+        (final polynomial (final_len, 2), final_ok): the coset iNTT on
+        the device (plain torch, as the JAX package's runs in XLA);
+        final_ok is a device bool, true when the coefficients past
+        final_len are zero."""
+        M = values.shape[0]
+        key = (M, shift)
+        if key not in self._final_consts:
+            self._final_consts[key] = gt.from_u64(
+                ntt_mod.powers(pow(shift, gl.P - 2, gl.P), M), self.device)
+        coeffs = gt.mul(ntt_mod.get_plan(M.bit_length() - 1).intt(values.T),
+                        self._final_consts[key])  # (2, M)
+        common = self.common
+        arities = common.config.fri_config.reduction_arity_bits(common.degree_bits)
+        final_len = 1 << max(0, common.degree_bits - sum(arities))
+        return coeffs[:, :final_len].T, (coeffs[:, final_len:] == 0).all()
+
+    def grind_pow(self, challenger: Challenger, bits: int, start: int = 0) -> int:
         """Batched PoW grind on the permutation kernel (K2): the first
-        candidate in order whose challenge has `bits` leading zeros,
-        identical to fri.grind_pow.  Batches of 2^18 candidates on the
-        card (2^12 for the plain version on the CPU)."""
+        candidate from `start` on whose challenge has `bits` leading
+        zeros, identical to fri.grind_pow when no candidate below
+        `start` has.  Batches of 2^18 candidates on the card (2^12 for
+        the plain version on the CPU)."""
         B = 1 << (18 if self.device.type == "cuda" else 12)
         pending = list(challenger.input_buf)
         n_pending = len(pending)
@@ -341,7 +600,6 @@ class DeviceProverContext:
         base[:n_pending] = np.array(pending, dtype=np.uint64)
         states0 = gt.from_u64(base, self.device).expand(B, 12).clone()
         lane = torch.arange(B, dtype=torch.int64, device=self.device)
-        start = 0
         while True:
             states = states0.clone()
             states[:, n_pending] = lane + start
@@ -358,9 +616,149 @@ class DeviceProverContext:
             raise RuntimeError("PoW self-check failed")
         return found
 
+    # -- the fused pipeline ------------------------------------------------------
+
+    def full_pipeline(self, salted: bool):
+        """The whole post-witness prove as one function (counterpart of
+        the JAX package's full_pipeline): (wire matrix (N, 135), pi_hash
+        (4,), salts) -> (outputs, layout), where salts are the wires',
+        zs' and quotient's (lde, 4) salts (None each without zero
+        knowledge).  `outputs` holds the trees and FRI layers on the
+        device and `packed`, every small output in one int64 vector,
+        whose fields `layout` lists; see _pipeline.  On the card it
+        replays the context's CUDA graph (FusedGraph); on the CPU it
+        runs eagerly."""
+
+        def body(wire_matrix, pi_hash, salts):
+            return self._pipeline(salted, wire_matrix, pi_hash, salts)
+
+        if self.device.type != "cuda":
+            return body
+        graph = self._full_fns.get(salted)
+        if graph is None:
+            graph = self._full_fns[salted] = FusedGraph(self.device)
+        return functools.partial(graph, body)
+
+    def _pipeline(self, salted: bool, wire_matrix, pi_hash, salts):
+        """full_pipeline's body (the JAX package's pipeline,
+        qzk_tpu/plonk/device_prover.py:657-819, step for step).  Every
+        value that depends on the witness or the transcript stays a
+        device tensor: nothing here synchronizes with the host or
+        uploads, so that the body can be captured."""
+        common = self.common
+        cfg = common.config
+        fri_cfg = cfg.fri_config
+        ch = DeviceChallenger(self.device)
+        # 2. commit wires
+        w_coeffs, w_lde, w_leaves, w_levels = self.commit_raw(
+            wire_matrix.T, salts[0] if salted else None)
+        ch.observe_elements(self.digest)
+        ch.observe_elements(pi_hash)
+        ch.observe_cap(w_levels[-1])
+        betas = ch.get_n_challenges(cfg.num_challenges)
+        gammas = ch.get_n_challenges(cfg.num_challenges)
+        # 3. permutation argument
+        zs_pp = self.zs_stage(wire_matrix[:, : cfg.num_routed_wires], betas, gammas)
+        z_coeffs, z_lde, z_leaves, z_levels = self.commit_raw(
+            zs_pp, salts[1] if salted else None)
+        ch.observe_cap(z_levels[-1])
+        alphas = ch.get_n_challenges(cfg.num_challenges)
+        # 4. quotient
+        q_coeffs, q_lde, tail_ok = self.quotient_stage(
+            w_lde, z_lde, pi_hash, betas, gammas, alphas)
+        q_leaves, q_levels = self.commit_leaves_raw(q_lde.T, salts[2] if salted else None)
+        ch.observe_cap(q_levels[-1])
+        zeta = ch.get_extension_challenge()
+        zeta_right = gt.ext_mul(zeta, self.g_ext)
+        # 5. openings
+        opened = self.openings_stage(w_coeffs, z_coeffs, q_coeffs, zeta, zeta_right)
+        zeta_claims = torch.cat(opened[:4])
+        ch.observe_elements(zeta_claims)
+        ch.observe_elements(opened[4])
+        fri_alpha = ch.get_extension_challenge()
+        apows_all = gt.ext_powers(fri_alpha, zeta_claims.shape[0])
+        apows_zs = gt.ext_powers(fri_alpha, opened[4].shape[0])
+        G = self.fri_input_stage(
+            w_lde, z_lde, q_lde, apows_all, _ext_reduce(zeta_claims, apows_all), zeta,
+            apows_zs, _ext_reduce(opened[4], apows_zs), zeta_right)
+        # FRI commit phase
+        arities = fri_cfg.reduction_arity_bits(common.degree_bits)
+        shift = gl.GENERATOR
+        values = G
+        layers = []
+        for ab in arities:
+            M = values.shape[0]
+            cap_h = fri_mod._layer_cap_height(fri_cfg, M >> ab)
+            commit_layer, fold_layer, group = self.fri_layer(M, ab, shift, cap_h)
+            leaves, levels = commit_layer(values)
+            ch.observe_cap(levels[-1])
+            beta = ch.get_extension_challenge()
+            layers.append((leaves, levels, values, group))
+            values = fold_layer(values, beta)
+            shift = pow(shift, 1 << ab, gl.P)
+        final_poly, final_ok = self.final_poly(values, shift)
+        ch.observe_elements(final_poly)
+
+        # the first PoW batch (the host grinds on when it holds no hit)
+        B = self.pow_batch
+        lane = torch.arange(B, dtype=torch.int64, device=self.device)
+        states = ch.state.expand(B, WIDTH).clone()
+        if ch.n_in:
+            states[:, : ch.n_in] = ch.pending()
+        states[:, ch.n_in] = lane
+        pow_out = pc.permute(states)
+        ok = gt.shr(pow_out[:, 7], 64 - fri_cfg.proof_of_work_bits) == 0
+        pow_cand = torch.where(ok, lane, B).min()  # B: no hit
+
+        # query indices from a fork that observes the candidate as the
+        # host transcript does, and every query gather
+        ch2 = ch.fork()
+        ch2.observe_element(pow_cand)
+        ch2.get_challenge()  # the PoW self-check draw
+        mask = (1 << common.lde_bits) - 1
+        qidx = torch.stack(
+            [ch2.get_challenge() & mask for _ in range(fri_cfg.num_query_rounds)])
+        self.duplexes[salted] = ch.duplexes + ch2.duplexes
+
+        trees = {"pre": (self.pre_tree.leaves, self.pre_tree.levels),
+                 "wires": (w_leaves, w_levels), "zs": (z_leaves, z_levels),
+                 "quotient": (q_leaves, q_levels)}
+        state, inb, outb = ch.export()
+        small = {"tail_ok": tail_ok, "final_ok": final_ok, "final_poly": final_poly,
+                 "ch_state": state, "ch_in": inb, "ch_out": outb,
+                 "pow_hit": pow_cand < B, "pow_cand": pow_cand, "qidx": qidx}
+        for i, o in enumerate(opened):
+            small[f"opened{i}"] = o
+        for name, (leaves, levels) in trees.items():
+            if name != "pre":
+                small[f"cap_{name}"] = levels[-1]
+            small[f"rows_{name}"], small[f"paths_{name}"] = _gather_tree(leaves, levels, qidx)
+        j = qidx
+        for t, (leaves, levels, vals, group) in enumerate(layers):
+            small[f"cap_layer{t}"] = levels[-1]
+            jg = j % (vals.shape[0] >> arities[t])
+            small[f"step{t}_leaf"] = group(vals)[jg]
+            small[f"step{t}_path"] = _gather_tree(leaves, levels, jg)[1]
+            j = jg
+        layout = [(name, tuple(t.shape)) for name, t in small.items()]
+        packed = torch.cat([t.reshape(-1).to(torch.int64) for t in small.values()])
+        out = {"trees": trees, "layers": layers, "packed": packed}
+        return out, layout
+
+
+def _unpack(flat: np.ndarray, layout) -> dict:
+    """The packed small outputs, by name, as uint64 arrays."""
+    out, pos = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        out[name] = flat[pos : pos + n].reshape(shape)
+        pos += n
+    return out
+
 
 # LRU over live device contexts: each context pins its circuit's
-# preprocessed LDE, tree and derived arrays in device memory, and an
+# preprocessed LDE, tree and derived arrays in device memory, and on the
+# card its fused pipeline's CUDA graphs and their memory pools; an
 # aggregation tree proves one more circuit a level.
 # Keeping at most QZK_CTX_LIMIT contexts resident turns that into
 # eviction and a rebuild.  Entries: (id(ctxs), key, ctxs, common) in
@@ -389,7 +787,7 @@ def _lru_touch(ctxs, key, common) -> None:
 def _evict_down_to(n_keep: int) -> None:
     while len(_CTX_LRU) > n_keep:
         _, key, ctxs, _ = _CTX_LRU.pop(0)
-        ctxs.pop(key, None)  # drop the refs; torch frees the memory
+        ctxs.pop(key, None)  # drop the refs; torch frees the memory and the graphs
 
 
 def context_device(device) -> torch.device:
@@ -477,17 +875,118 @@ def _rounds_from_data(oracle_data, step_data, Q):
     return rounds
 
 
+def fused_wanted() -> bool:
+    """The fused pipeline unless QZK_FUSED=0 asks for the staged one.
+    Neither path falls back to the other: an error raises."""
+    return os.environ.get("QZK_FUSED", "1") != "0"
+
+
+def _fused_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
+                 mark) -> ProofWithPublicInputs:
+    """device_prove through full_pipeline (counterpart of the JAX
+    package's _fused_prove): one graph replay covers the wires commit
+    through the query gathers; one download brings every small output;
+    the host challenger is rebuilt from the device's for the PoW
+    self-check and the query indices."""
+    common = ctx.common
+    cfg = common.config
+    fri_cfg = cfg.fri_config
+    arities = fri_cfg.reduction_arity_bits(common.degree_bits)
+    salted = cfg.zero_knowledge
+    # drawn in the staged path's order: wires, zs, quotient
+    salts = tuple(fresh_salt(common.lde_size) for _ in range(3))
+    wire_matrix = ctx.assemble_wires(values, blind_block)
+    pi_dev = gt.from_u64(np.asarray(pi_hash, dtype=np.uint64), ctx.device)
+    with ctx.lock:  # the graph's outputs are overwritten by its next replay
+        out, layout = ctx.full_pipeline(salted)(wire_matrix, pi_dev, salts)
+        small = _unpack(gt.to_u64(out["packed"]), layout)
+        if not small["tail_ok"]:
+            raise ValueError(
+                "constraints unsatisfied: quotient degree overflow "
+                "(witness does not satisfy the circuit)"
+            )
+        if not small["final_ok"]:
+            raise RuntimeError("FRI final poly degree too high")
+        openings = Openings(preprocessed=small["opened0"], wires=small["opened1"],
+                            zs_partial=small["opened2"], quotient=small["opened3"],
+                            zs_partial_right=small["opened4"])
+        mark("fused pipeline (device, 1 dispatch)")
+
+        # the host challenger at the point after the final polynomial
+        challenger = Challenger()
+        challenger.state = small["ch_state"].copy()
+        challenger.input_buf = [np.uint64(x) for x in small["ch_in"]]
+        challenger.output_buf = [np.uint64(x) for x in small["ch_out"]]
+        bits = fri_cfg.proof_of_work_bits
+        nq = fri_cfg.num_query_rounds
+        if small["pow_hit"]:
+            pow_witness = int(small["pow_cand"])
+            challenger.observe_element(pow_witness)
+            if int(challenger.get_challenge()) >> (64 - bits) != 0:
+                raise RuntimeError("PoW self-check failed")
+            indices = challenger.get_indices(nq, common.lde_bits)
+            if [int(v) for v in small["qidx"]] != indices:
+                raise RuntimeError("device query indices != host transcript replay")
+            mark("PoW finalize (host)")
+            oracle_data = [(small[f"rows_{n}"], small[f"paths_{n}"])
+                           for n in ("pre", "wires", "zs", "quotient")]
+            step_data = [(small[f"step{t}_leaf"], small[f"step{t}_path"])
+                         for t in range(len(arities))]
+            rounds = _rounds_from_data(oracle_data, step_data, nq)
+        else:  # no hit in the batch: grind on, re-derive and re-gather
+            pow_witness = ctx.grind_pow(challenger, bits, start=ctx.pow_batch)
+            mark("PoW finalize (host)")
+            indices = challenger.get_indices(nq, common.lde_bits)
+            oracles = [ctx.pre_tree] + [
+                DeviceTree(*out["trees"][n], cap=small[f"cap_{n}"])
+                for n in ("wires", "zs", "quotient")]
+            layer_trees = [DeviceTree(leaves, levels, cap=small[f"cap_layer{t}"])
+                           for t, (leaves, levels, _, _) in enumerate(out["layers"])]
+            rounds = _assemble_query_rounds(
+                [group for *_, group in out["layers"]], arities, oracles,
+                [vals for _, _, vals, _ in out["layers"]], layer_trees, indices)
+        mark("FRI queries (in-dispatch gathers)")
+
+    proof = Proof(
+        wires_cap=small["cap_wires"],
+        zs_partial_cap=small["cap_zs"],
+        quotient_cap=small["cap_quotient"],
+        openings=openings,
+        fri=FriProof(
+            commit_phase_caps=[small[f"cap_layer{t}"] for t in range(len(arities))],
+            final_poly=small["final_poly"],
+            pow_witness=pow_witness,
+            query_rounds=rounds,
+        ),
+    )
+    return ProofWithPublicInputs(proof=proof, public_inputs=public_inputs)
+
+
 def device_prove(common, prover_only, values, blind_block, public_inputs, pi_hash,
                  fresh_salt, device: torch.device, timer=None) -> ProofWithPublicInputs:
     """Steps 2-5 of the prove pipeline on `device`, from the host
     witness values.  Called by plonk.prover.prove, which passes the zk
     blind block (or None) and fresh_salt(n_leaves), the next (n, 4)
     salt of the blinding stream (None without zero knowledge): drawn
-    for the wires, the zs and the quotient, in that order."""
-    cfg = common.config
-    fri_cfg = cfg.fri_config
+    for the wires, the zs and the quotient, in that order.  The fused
+    pipeline unless QZK_FUSED=0 (fused_wanted)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     ctx = get_context(common, prover_only, device)
+    if fused_wanted():
+        return _fused_prove(ctx, values, blind_block, public_inputs, pi_hash,
+                            fresh_salt, mark)
+    return _staged_prove(ctx, values, blind_block, public_inputs, pi_hash,
+                         fresh_salt, mark)
+
+
+def _staged_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
+                  mark) -> ProofWithPublicInputs:
+    """The staged pipeline: the host challenger, a download at every
+    transcript step."""
+    common = ctx.common
+    device = ctx.device
+    cfg = common.config
+    fri_cfg = cfg.fri_config
 
     def dev(a):
         return gt.from_u64(np.asarray(a, dtype=np.uint64), device)
@@ -519,7 +1018,7 @@ def device_prove(common, prover_only, values, blind_block, public_inputs, pi_has
     quotient_coeffs, quotient_lde, tail_ok = ctx.quotient_stage(
         wires_lde, zs_lde, dev(pi_hash), dev(betas), dev(gammas), dev(alphas)
     )
-    if not tail_ok:
+    if not bool(tail_ok):
         raise ValueError(
             "constraints unsatisfied: quotient degree overflow "
             "(witness does not satisfy the circuit)"
@@ -578,7 +1077,7 @@ def device_prove(common, prover_only, values, blind_block, public_inputs, pi_has
         M = values_f.shape[0]
         cap_h = fri_mod._layer_cap_height(fri_cfg, M // A)
         commit_layer, fold_layer, group = ctx.fri_layer(M, ab, shift, cap_h)
-        tree = commit_layer(values_f)
+        tree = DeviceTree.from_levels(*commit_layer(values_f))
         challenger.observe_cap(tree.cap)
         beta = challenger.get_extension_challenge()
         layer_trees.append(tree)
@@ -586,15 +1085,10 @@ def device_prove(common, prover_only, values, blind_block, public_inputs, pi_has
         groups.append(group)
         values_f = fold_layer(values_f, dev(beta))
         shift = pow(shift, A, gl.P)
-    final_values = gt.to_u64(values_f)
-    M = final_values.shape[0]
-    coeffs = ntt_mod.intt_np(final_values.T).T
-    s_inv_pows = ntt_mod.powers(pow(shift, gl.P - 2, gl.P), M)
-    coeffs = gl.mul(coeffs, s_inv_pows[:, None])
-    final_len = 1 << max(0, common.degree_bits - sum(arities))
-    if not (coeffs[final_len:] == 0).all():
+    final_dev, final_ok = ctx.final_poly(values_f, shift)
+    if not bool(final_ok):
         raise RuntimeError("FRI final poly degree too high")
-    final_poly = coeffs[:final_len]
+    final_poly = gt.to_u64(final_dev)
     challenger.observe_elements(final_poly.ravel())
     pow_witness = ctx.grind_pow(challenger, fri_cfg.proof_of_work_bits)
     mark("fri layers + pow")

@@ -33,6 +33,16 @@ import numpy as np
 
 from ..ops import goldilocks as gl
 from ..ops import poseidon as pos
+from ..utils.device import device_constant
+
+
+def _wire_index(gate, name: str, idx, device):
+    """A gate's wire-index vector on `device`, uploaded once."""
+    import torch
+
+    return device_constant((gate, name), device,
+                           lambda: torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                                   device=device))
 
 # ---------------------------------------------------------------------------
 # Evaluation algebras
@@ -151,7 +161,9 @@ class TorchAlgebra:
         self.device = device
 
     def const(self, v: int):
-        return self._gt.scalar(v % gl.P, self.device)
+        v %= gl.P
+        return device_constant(("field", v), self.device,
+                               lambda: self._gt.scalar(v, self.device))
 
     def add(self, a, b):
         return self._gt.add(a, b)
@@ -232,7 +244,10 @@ class ArithmeticGate(Gate):
         idx = np.array(
             [self.wires_op(i) for i in range(self.num_ops)], dtype=np.int64
         )
-        m0, m1, a, o = (wires_mat[idx[:, k]] for k in range(4))
+        m0, m1, a, o = (
+            wires_mat[_wire_index(self, f"op{k}", idx[:, k], wires_mat.device)]
+            for k in range(4)
+        )
         c0, c1 = const_mat[0][None, :], const_mat[1][None, :]
         return gt.sub(
             gt.add(gt.mul(c0, gt.mul(m0, m1)), gt.mul(c1, a)), o
@@ -471,10 +486,13 @@ class PoseidonGate(Gate):
 
         W = self.WIDTH
         dev = wires_mat.device
-        rc_all = gt.from_u64(pos._RC, dev)[:, :, None]  # (30, 12, 1)
-        mds_m = torch.as_tensor(
-            pos.MDS_MATRIX.astype(np.int64), device=dev
-        )[:, :, None]  # (12, 12, 1)
+        rc_all = device_constant(  # (30, 12, 1)
+            "poseidon_gate_rc", dev, lambda: gt.from_u64(pos._RC, dev)[:, :, None]
+        )
+        mds_m = device_constant(  # (12, 12, 1)
+            "poseidon_gate_mds", dev,
+            lambda: torch.as_tensor(pos.MDS_MATRIX.astype(np.int64), device=dev)[:, :, None],
+        )
         M32 = 0xFFFFFFFF
 
         def mds(st):  # (12, M) -> (12, M)
@@ -503,7 +521,7 @@ class PoseidonGate(Gate):
 
         def full_rounds(state, rounds, wire):
             for k, r in enumerate(rounds):
-                stored = wires_mat[[wire(k, i) for i in range(W)]]
+                stored = wires_mat[wire(k, 0) : wire(k, 0) + W]  # wire(k, i) = wire(k, 0) + i
                 rows.append(gt.sub(stored, gt.add(state, rc_all[r])))
                 state = mds(x7(stored))
             return state
@@ -521,7 +539,7 @@ class PoseidonGate(Gate):
         # second-half full rounds: all stored
         p1 = 4 + pos.N_PARTIAL_ROUNDS
         state = full_rounds(state, range(p1, p1 + 4), self.wire_full1)
-        outs = wires_mat[[self.wire_out(i) for i in range(W)]]
+        outs = wires_mat[self.wire_out(0) : self.wire_out(0) + W]
         rows.append(gt.sub(outs, state))
         return torch.cat(rows)
 
@@ -569,8 +587,9 @@ class BitDecompGate(Gate):
         bit_idx = np.array(
             [self.wires_op(i)[1] for i in range(self.num_ops)]
         )  # (ops, bits) little-endian
-        v = wires_mat[v_idx]  # (ops, M)
-        bits = wires_mat[bit_idx.ravel()].reshape(
+        dev = wires_mat.device
+        v = wires_mat[_wire_index(self, "value", v_idx, dev)]  # (ops, M)
+        bits = wires_mat[_wire_index(self, "bits", bit_idx.ravel(), dev)].reshape(
             self.num_ops, self.bits, -1
         )  # (ops, bits, M)
         boolcons = gt.sub(gt.mul(bits, bits), bits).flip(1)  # MSB-first

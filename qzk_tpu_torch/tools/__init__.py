@@ -1,1 +1,1 @@
-"""Command-line tools of the port that need no card."""
+"""Command-line tools of the port: the chunk-cache builder (host only) and the prove profiler."""

@@ -1,6 +1,8 @@
-"""Which device an entry point runs on."""
+"""Which device an entry point runs on, and the constants kept there."""
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -18,3 +20,22 @@ def resolve_device(device=None) -> torch.device:
             "port's plain torch path on the CPU"
         )
     return dev
+
+
+# Small per-device tables (round constants, index vectors, field
+# constants), uploaded at first use and kept: an upload inside a prove
+# is a host round trip, and one inside a captured CUDA graph would be
+# an error.
+_CONSTANTS: dict = {}
+_CONSTANTS_LOCK = threading.Lock()
+
+
+def device_constant(key, device, make) -> torch.Tensor:
+    """make() (a tensor on `device`), built once per (key, device)."""
+    k = (key, str(torch.device(device)))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = make()
+        with _CONSTANTS_LOCK:
+            t = _CONSTANTS.setdefault(k, t)
+    return t

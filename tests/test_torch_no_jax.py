@@ -49,6 +49,8 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.tools",
         "qzk_tpu_torch.tools.build_chunk_cache",
         "qzk_tpu_torch.benches.verify",
+        "qzk_tpu_torch.plonk.device_prover",
+        "qzk_tpu_torch.tools.profile_prover",
     } <= set(_modules())
     code = textwrap.dedent(
         f"""

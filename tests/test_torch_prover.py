@@ -66,9 +66,13 @@ def jax_side():
 
 @pytest.fixture(scope="module")
 def torch_side():
+    """The staged path's proof and phases (QZK_FUSED=0); the fused
+    path's are tests/test_torch_fused.py's."""
     data, pw = _build(tbuilder, tconfig, twitness)
     timer = PhaseTimer()
-    proof = data.prove(pw, device="cpu", timer=timer)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("QZK_FUSED", "0")
+        proof = data.prove(pw, device="cpu", timer=timer)
     return data, proof, timer
 
 
@@ -122,7 +126,9 @@ def zk_sides():
     jdata, jpw = _build(jbuilder, jconfig, jwitness, zk=True)
     tdata, tpw = _build(tbuilder, tconfig, twitness, zk=True)
     timer = PhaseTimer()
-    tproof = tdata.prove(tpw, device="cpu", timer=timer)
+    with pytest.MonkeyPatch.context() as mp:  # the staged path, as torch_side
+        mp.setenv("QZK_FUSED", "0")
+        tproof = tdata.prove(tpw, device="cpu", timer=timer)
     return jdata, jdata.prove(jpw), tdata, tpw, tproof, timer
 
 
@@ -169,7 +175,8 @@ def test_zero_knowledge_flipped_salt_word_is_rejected(zk_sides):
 
 def test_proof_hash_is_stable(torch_side):
     """Proving twice gives the same bytes (the prover is deterministic
-    in non-zk mode, and the device context is reused)."""
+    in non-zk mode, and the device context is reused); the second prove
+    takes the default, fused path."""
     data, proof, _ = torch_side
     _, pw = _build(tbuilder, tconfig, twitness)
     again = data.prove(pw, device="cpu")

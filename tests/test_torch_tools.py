@@ -1,0 +1,116 @@
+"""The port's prove profiler (qzk_tpu_torch/tools/profile_prover.py):
+its chrome-trace parsing on synthetic traces, as tests/test_tools.py
+covers the JAX tool's, so that the fast tier needs no card and no
+profile run."""
+
+import gzip
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from qzk_tpu_torch.tools.profile_prover import kernel_name, summarize
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _write(path, events, gz=False):
+    opener = gzip.open if gz else open
+    with opener(path, "wt") as f:
+        json.dump({"traceEvents": events}, f)
+    return str(path)
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["json", "json.gz"])
+def test_device_events_and_grouping(tmp_path, gz):
+    """torch.profiler's kernel, memcpy and memset categories count; host
+    ops, runtime calls and annotations do not; every instantiation of a
+    kernel groups under its bare name."""
+    trace = _write(tmp_path / ("t.json.gz" if gz else "t.json"), [
+        {"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "GPU 0"}},
+        {"ph": "M", "name": "process_name", "pid": 77, "args": {"name": "python3"}},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "void hash_rows_kernel<8>(unsigned long const*)",
+         "ts": 0, "dur": 1000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "void hash_rows_kernel<4>(unsigned long const*)",
+         "ts": 1000, "dur": 3000},
+        {"ph": "X", "cat": "gpu_memcpy", "pid": 0, "name": "Memcpy DtoH (Device -> Pageable)",
+         "ts": 4000, "dur": 500},
+        {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "name": "qzk_prove", "ts": 0, "dur": 9000},
+        {"ph": "X", "cat": "cpu_op", "pid": 77, "name": "aten::mul", "ts": 0, "dur": 99999},
+        {"ph": "X", "cat": "cuda_runtime", "pid": 77, "name": "cudaLaunchKernel", "ts": 0, "dur": 5},
+        {"ph": "B", "cat": "kernel", "pid": 0, "name": "begin", "ts": 0},
+    ], gz)
+    lines = []
+    rec = summarize(trace, top=10, out=lines.append)
+    assert rec["device_ms"] == pytest.approx(4.5)
+    assert rec["device_events"] == 3 and rec["kernels"] == 2
+    assert rec["by_name"][0] == ["hash_rows_kernel", pytest.approx(4.0), 2]
+    assert rec["by_name"][1][0] == "Memcpy DtoH"
+    text = "\n".join(lines)
+    assert "aten::mul" not in text and "cudaLaunchKernel" not in text
+
+
+def test_idle_share_from_overlapping_intervals(tmp_path):
+    """Busy time is the union of the device intervals, clipped to the
+    qzk_prove range; the idle share is the rest of that range."""
+    trace = _write(tmp_path / "t.json", [
+        {"ph": "X", "cat": "user_annotation", "pid": 77, "name": "qzk_prove", "ts": 1000, "dur": 5000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "a", "ts": 1000, "dur": 1000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "b", "ts": 1500, "dur": 1000},  # overlaps a
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "c", "ts": 4000, "dur": 1000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "d", "ts": 5500, "dur": 1000},  # half outside
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "e", "ts": 9000, "dur": 1000},  # outside
+    ])
+    rec = summarize(trace, out=lambda s: None)
+    assert rec["window_ms"] == pytest.approx(5.0)
+    assert rec["busy_ms"] == pytest.approx(1.5 + 1.0 + 0.5)
+    assert rec["idle_share"] == pytest.approx(1 - 3.0 / 5.0)
+    assert rec["device_ms"] == pytest.approx(1.0 + 1.0 + 1.0 + 0.5)
+    assert rec["device_events"] == 4
+
+
+def test_lane_filter_without_categories(tmp_path):
+    """An event without a category counts when it lies on a device
+    lane; with no lane named, the window is the span of all events."""
+    trace = _write(tmp_path / "t.json", [
+        {"ph": "M", "name": "process_name", "pid": 1, "args": {"name": "/device:GPU:0"}},
+        {"ph": "M", "name": "process_name", "pid": 2, "args": {"name": "python"}},
+        {"ph": "X", "pid": 1, "name": "k", "ts": 0, "dur": 2000},
+        {"ph": "X", "pid": 2, "name": "hostwork", "ts": 0, "dur": 4000},
+    ])
+    rec = summarize(trace, out=lambda s: None)
+    assert rec["device_ms"] == pytest.approx(2.0)
+    assert rec["window_ms"] == pytest.approx(4.0)
+    assert rec["idle_share"] == pytest.approx(0.5)
+    empty = summarize(_write(tmp_path / "e.json", []), out=lambda s: None)
+    assert empty["device_events"] == 0 and empty["idle_share"] is None
+
+
+@pytest.mark.parametrize("raw, name", [
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<long, long, "
+     "long, at::native::BitwiseAndFunctor<long> >, at::detail::Array<char*, 3> >(int, T1, T2)",
+     "at::native::vectorized_elementwise_kernel"),
+    ("void ntt_axis0_kernel<5>(Args)", "ntt_axis0_kernel"),
+    ("void (anonymous namespace)::hash_rows_kernel<8>(unsigned long const*, long long)",
+     "hash_rows_kernel"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<long, 4>(long*)",
+     "at::native::CatArrayBatchedCopy"),
+    ("permute_kernel", "permute_kernel"),
+    ("Memset (Device)", "Memset"),
+])
+def test_kernel_name(raw, name):
+    assert kernel_name(raw) == name
+
+
+def test_import_runs_nothing():
+    """Importing the tool neither profiles nor imports the card's
+    libraries or JAX."""
+    code = ("import sys; sys.path.insert(0, %r); import qzk_tpu_torch.tools.profile_prover; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qzk_tpu')]; "
+            "assert not bad, bad; print('IMPORT_OK')" % _REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "IMPORT_OK" in res.stdout
