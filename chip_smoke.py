@@ -1,6 +1,8 @@
 """Drives the PyTorch/CUDA port (qzk_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multicard   (two cards or more: only the
+                                         sharded phase's multi-card checks)
 
 Phases, in order:
   build    build the native (g++) and CUDA (nvcc) libraries, all at once;
@@ -47,6 +49,20 @@ Phases, in order:
            pipeline at the same pin, and three pairs of warm fused and
            staged trees in turn; then one zk salt draw at the chunk
            prove's shape, timed and held to the CPU's draw;
+  sharded  the sharded prover (qzk_tpu_torch/parallel/) on one card: the
+           zk Wormhole over a mesh of 4 shards on cuda:0 and the non-zk
+           one over 8, each first and then warm with its phases timed by
+           CUDA events, the kernel launches counted from 0 (K1, K2 and
+           K3 must each be launched), the peak device memory, the
+           precondition fallback's warning raised as an error and
+           sharded_prove's own count checked, its proof held to the
+           single-device pin; the 2^22 NTT through ntt_sharded over 4
+           shards against the single-device K3 result; K1 and K3 against
+           their plain versions at every shape the two warm proves gave
+           them; with two cards or more, the zk proof on a mesh of one
+           shard a card at the same pin, and a (2, 2) tree whose chunks
+           fan out across the cards, its root equal to one worker's on
+           one card (with one card, a line says why they did not run);
   artifacts  the resume paths: write the non-zk Wormhole's common.bin,
            verifier.bin and prover.bin (generate_circuit_binaries), hold
            the first two to their sha256 pins, and time reading and
@@ -73,7 +89,9 @@ Phases, in order:
            every shape the warm zk prove launched them with, summed as
            prove_ms, K3's from graph replays, and the same for the
            non-zk prove as *_nonzk and for the warm (2, 1) chunk prove
-           as *_agg; K2 also at (1, 12), the device challenger's duplex,
+           as *_agg, for the warm sharded proves as *_sharded4 (zk,
+           4 shards) and *_sharded8 (non-zk, 8 shards); K2 also at
+           (1, 12), the device challenger's duplex,
            beside that shape's dependent-chain bound, and summed over
            the warm zk prove's launches), the card's name and power
            limit, and the final status line.
@@ -430,7 +448,9 @@ def time_kernels(state) -> list[dict]:
     k1_bytes, k1_ops = k1_work(n, w)
     # per warm prove: the zk main path's shapes, and the non-zk ones
     runs = {"": state["runs"]["wormhole_zk"], "_nonzk": state["runs"]["wormhole_nonzk"],
-            "_agg": state["agg_runs"]["agg_2_1"]}
+            "_agg": state["agg_runs"]["agg_2_1"],
+            "_sharded4": state["sharded_runs"]["wormhole_zk_sharded4"],
+            "_sharded8": state["sharded_runs"]["wormhole_nonzk_sharded8"]}
     k1_prove = {tag: time_k1_per_prove(r["k1_shapes"], rng, dev) for tag, r in runs.items()}
     b = 1 << 18
     states = edge_rows(rng, b, 12, dev)
@@ -465,10 +485,12 @@ def time_kernels(state) -> list[dict]:
             "library_ms": None, "shape": shape,
             "launches_by_path": {p: r["launches"][key] for p, r in
                                  {**state["runs"], **state["agg_runs"],
-                                  **state["artifact_runs"], **state["staged_runs"]}.items()},
+                                  **state["artifact_runs"], **state["staged_runs"],
+                                  **state["sharded_runs"]}.items()},
         }
 
-    labels = {"": "zk", "_nonzk": "non-zk", "_agg": "(2, 1) chunk"}
+    labels = {"": "zk", "_nonzk": "non-zk", "_agg": "(2, 1) chunk",
+              "_sharded4": "zk sharded (4 shards)", "_sharded8": "non-zk sharded (8 shards)"}
 
     def add_per_prove(record, per_prove):
         for tag, (total, shapes, bound) in per_prove.items():
@@ -922,6 +944,188 @@ def phase_aggregate(state) -> None:
     state["agg_runs"]["agg_2_1"]["result"] = root
 
 
+# The sharded phase: meshes of shards on cuda:0, and (two cards or more)
+# one shard a card.
+SHARDED = (("wormhole_zk", 4), ("wormhole_nonzk", 8))
+PRECONDITION_WARNING = ".*sharded-prove divisibility preconditions"
+
+
+@contextlib.contextmanager
+def active_mesh(mesh):
+    """`mesh` active inside the block, with the sharded path's fallback
+    to one device (the precondition warning) raised as an error."""
+    from qzk_tpu_torch import parallel
+
+    parallel.set_mesh(mesh)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=PRECONDITION_WARNING,
+                                    category=RuntimeWarning)
+            yield
+    finally:
+        parallel.set_mesh(None)
+
+
+def sharded_proves(fn):
+    """fn() -> (fn's result, the sharded proves it completed)."""
+    from qzk_tpu_torch.parallel import prover_sharded as ps
+
+    before = ps.PROVES["sharded_prove"]
+    out = fn()
+    return out, ps.PROVES["sharded_prove"] - before
+
+
+def drive_sharded(state, name: str, d: int) -> None:
+    """Circuit `name` over a mesh of d shards on cuda:0, first and warm;
+    the warm prove's phases, launches and peak memory; the pin."""
+    from qzk_tpu_torch.parallel import sharded
+    from qzk_tpu_torch.plonk.prover import PhaseTimer
+
+    key = f"{name}_sharded{d}"
+    prove = prover_of(state, name)
+    mesh = sharded.make_mesh(d, devices=[torch.device("cuda", 0)])
+    resident = torch.cuda.memory_allocated()
+    with active_mesh(mesh):
+        torch.cuda.reset_peak_memory_stats()
+        with Phase(f"sharded {key} (first, includes the sharded context)"):
+            _, n_first = sharded_proves(prove)
+        cold_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timer = PhaseTimer(cuda_events=True)
+        with Phase(f"sharded {key} (warm)") as ph:
+            (proof, launches), n_warm = sharded_proves(lambda: counted(key, lambda: prove(timer)))
+        peak = torch.cuda.max_memory_allocated()
+    if (n_first, n_warm) != (1, 1):
+        raise AssertionError(f"{key}: sharded_prove ran {n_first} and {n_warm} times, not 1 and 1")
+    record_run(state["sharded_runs"], key, proof, prove, launches, ph.seconds, timer)
+    state["sharded_runs"][key]["peak"] = (cold_peak, peak)
+    log(f"sharded {key}: {mesh}; peak device memory {cold_peak / 2**30:.3f} GiB first, "
+        f"{peak / 2**30:.3f} GiB warm (torch.cuda.max_memory_allocated), of which "
+        f"{resident / 2**30:.3f} GiB were allocated before")
+    require_pin(f"sharded {key}: proof", proof, _pins()[name])
+
+
+def sharded_ntt(state) -> None:
+    """The 2^22 NTT through ntt_sharded over 4 shards on cuda:0 against
+    the single-device K3 result; both timed by CUDA events."""
+    from qzk_tpu_torch.parallel import sharded
+    from qzk_tpu_torch.parallel.ntt_sharded import ntt_sharded
+
+    dev = torch.device("cuda", 0)
+    n = 1 << BENCH_LOG_N
+    x = np.random.default_rng(22).integers(0, gl.P, size=(1, n), dtype=np.uint64)
+    coeffs = gt.from_u64(x, dev)
+    mesh = sharded.make_mesh(4, devices=[dev])
+    blocks = sharded.shard(coeffs, mesh, axis=-1)
+    plan = nfs.get_fourstep_cuda_plan(BENCH_LOG_N)
+    with Phase("sharded 2^22 NTT"):
+        got, launches = counted_k3("sharded 2^22 NTT", lambda: ntt_sharded(blocks, mesh))
+        require_equal("2^22 NTT, sharded over 4 shards vs single-device K3",
+                      sharded.gather(got, axis=-1), plan.ntt(coeffs))
+        ms = cuda_ms(lambda: ntt_sharded(blocks, mesh))
+        single_ms = cuda_ms(lambda: plan.ntt(coeffs))
+    state["sharded_ntt"] = {"ms": ms, "single_ms": single_ms, "k3_launches": launches}
+    log(f"sharded 2^22 NTT over 4 shards on one card: equal to the single-device K3 NTT; "
+        f"{launches} K3 launches; {ms:.4f} ms against {single_ms:.4f} ms on one device "
+        f"(CUDA events, 10 calls)")
+
+
+def counted_k3(what: str, fn):
+    """fn() with K3's launches counted from 0; K3 must be launched."""
+    nc.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    if nc.LAUNCHES["ntt_axis0"] <= 0:
+        raise AssertionError(f"K3 was not launched by the {what}")
+    return out, nc.LAUNCHES["ntt_axis0"]
+
+
+def check_sharded_shapes(state) -> None:
+    """K1 and K3 against their plain versions at every shape the warm
+    sharded proves launched them with."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    k1 = set().union(*(r["k1_shapes"] for r in state["sharded_runs"].values()))
+    k3 = set().union(*(r["k3_shapes"] for r in state["sharded_runs"].values()))
+    err = state["max_abs_err"]
+    with Phase("sharded kernel shapes"):
+        for n, w in sorted(k1):
+            x = edge_rows(rng, n, w, dev)
+            got = pc.hash_no_pad_rows(x)
+            torch.cuda.synchronize()
+            err["hash_rows"] = max(err["hash_rows"], require_equal(
+                f"K1 sharded shape ({n}, {w})", got, pt.hash_no_pad_batch(x)))
+        for b, log_n, m, strided, tw in sorted(k3):
+            rows = 1 << log_n
+            x = canonical_rows(rng, (b, m, rows) if strided else (b, rows, m), dev)
+            x = x.transpose(1, 2) if strided else x
+            stw = gt.from_u64(ntp.stage_tw_table(log_n), dev)
+            twiddle = canonical_rows(rng, (rows, m), dev) if tw else None
+            err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
+                f"K3 sharded shape ({b}, 2^{log_n}, {m}) strided={strided} twiddle={tw}",
+                x, stw, twiddle))
+    log(f"sharded kernel shapes: K1 at {len(k1)} shapes, K3 at {len(k3)}, bit-exact against "
+        f"the plain torch versions: K1 {sorted(k1)}; K3 {sorted(k3)}")
+
+
+def multi_card(state) -> None:
+    """With two cards or more: the zk Wormhole on a mesh of one shard a
+    card at its pin, and a (2, 2) tree whose chunks fan out across the
+    cards, its root equal to one worker's on one card."""
+    from qzk_tpu_torch.models.wormhole import aggregator as agg
+    from qzk_tpu_torch.parallel import sharded
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"sharded: {cards} card visible; the one-shard-a-card mesh and the (2, 2) tree "
+            f"fanned out across cards need two cards or more, so neither ran")
+        return
+    d = 1 << min(3, cards.bit_length() - 1)  # a power of two the config allows
+    mesh = sharded.make_mesh(d)
+    prove = prover_of(state, "wormhole_zk")
+    with active_mesh(mesh):
+        with Phase(f"sharded wormhole_zk, one shard a card ({d} cards, first)"):
+            _, n_first = sharded_proves(prove)
+        with Phase(f"sharded wormhole_zk, one shard a card ({d} cards, warm)"):
+            (proof, launches), n_warm = sharded_proves(
+                lambda: counted("wormhole_zk_cards", prove))
+    if (n_first, n_warm) != (1, 1):
+        raise AssertionError("the one-shard-a-card prove did not run sharded_prove")
+    log(f"sharded wormhole_zk over {mesh}: {launch_text(launches)}")
+    require_pin(f"sharded wormhole_zk over {d} cards: proof", proof, _pins()["wormhole_zk"])
+
+    data = state["circuits"]["wormhole_zk"][0]
+    leaves = state["leaves"] * 2
+    tree = agg.TreeAggregationConfig.new(2, 2)
+    roots = {}
+    for workers in (str(min(cards, 2)), "1"):
+        old = os.environ.get("QZK_AGG_WORKERS")
+        os.environ["QZK_AGG_WORKERS"] = workers
+        try:
+            with Phase(f"(2, 2) tree, {workers} worker(s)"):
+                roots[workers] = agg.aggregate_to_tree(
+                    leaves, data.common, data.verifier_only, tree, device="cuda:0")
+        finally:
+            if old is None:
+                del os.environ["QZK_AGG_WORKERS"]
+            else:
+                os.environ["QZK_AGG_WORKERS"] = old
+    fanned, single = (roots[k].proof.to_bytes() for k in (str(min(cards, 2)), "1"))
+    if fanned != single:
+        raise AssertionError("the (2, 2) root fanned out across cards != one worker's root")
+    log(f"(2, 2) tree: chunks on {agg._chunk_devices(2, torch.device('cuda', 0))}; root sha256 "
+        f"{hashlib.sha256(fanned).hexdigest()} equal to one worker's on one card")
+
+
+def phase_sharded(state) -> None:
+    state["sharded_runs"] = {}
+    for name, d in SHARDED:
+        drive_sharded(state, name, d)
+    sharded_ntt(state)
+    check_sharded_shapes(state)
+    multi_card(state)
+
+
 def require_sha256(what: str, blob: bytes, pin: str) -> None:
     digest = hashlib.sha256(blob).hexdigest()
     if digest != pin:
@@ -1145,6 +1349,31 @@ def phase_report(state) -> None:
     log(smi.stdout.strip().splitlines()[0])
 
 
+def main_multicard(state) -> None:
+    """python3 chip_smoke.py --multicard: only the checks that need two
+    cards or more (multi_card), after the builds, the zk Wormhole circuit
+    and its two aggregation leaves that they need."""
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    from qzk_tpu_torch.models.wormhole.circuit import WormholeCircuit
+    from qzk_tpu_torch.models.wormhole.prover import WormholeProver
+    from qzk_tpu_torch.plonk.config import CircuitConfig
+
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError("--multicard needs two cards or more")
+    phase_build(state)
+    with Phase("circuit wormhole_zk"):
+        circuit = WormholeCircuit(CircuitConfig.standard_recursion_zk_config())
+        targets = circuit.targets()
+        data = circuit.build_circuit()
+    state.update(circuits={"wormhole_zk": (data, targets)}, common=data.common)
+    with Phase("prove the two zk Wormhole leaves"):
+        state["leaves"] = [
+            WormholeProver(data.common.config, _circuit_data=data.prover_data(),
+                           _targets=targets, device="cuda").commit(inputs).prove()
+            for inputs in wfix.aggregation_leaf_inputs()]
+    multi_card(state)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1162,8 +1391,12 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     state: dict = {}
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--multicard"]:
+        main_multicard(state)
+        log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
+        return 0
     for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
-                  phase_aggregate, phase_artifacts, phase_verify, phase_report):
+                  phase_aggregate, phase_sharded, phase_artifacts, phase_verify, phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"ok": True, "device": {

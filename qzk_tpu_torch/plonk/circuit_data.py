@@ -138,10 +138,12 @@ class ProverOnlyCircuitData:
     def __getstate__(self):
         """The pickled state (utils/serialization.py's prover-only blob,
         copies) leaves out the prover contexts that a prove stores here
-        (`_torch_ctxs`, plonk/device_prover.py::get_context): device
-        tensors, rebuilt at the next prove."""
+        (`_torch_ctxs`, plonk/device_prover.py::get_context, and
+        `_sharded_ctx`, parallel/prover_sharded.py::get_sharded_context):
+        device tensors, rebuilt at the next prove."""
         state = dict(self.__dict__)
         state.pop("_torch_ctxs", None)
+        state.pop("_sharded_ctx", None)
         return state
 
 

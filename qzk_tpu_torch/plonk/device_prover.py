@@ -191,6 +191,30 @@ class DeviceChallenger:
         return self.state, self.pending(), self.state[: self.n_out]
 
 
+def chunk_products(ratios, common) -> list:
+    """(n, num_routed) permutation ratios -> the product of each chunk
+    of routed wires, [(n,)] a chunk; a halving tree when the chunks are
+    whole (associativity is exact in the field, so the values equal the
+    sequential order's), else sequential."""
+    chunk, n_chunks = common.chunk_size, common.num_chunks
+    num_routed = common.config.num_routed_wires
+    if num_routed == n_chunks * chunk:
+        t = ratios.reshape(-1, n_chunks, chunk)
+        while t.shape[-1] > 1:
+            if t.shape[-1] % 2:
+                t = torch.cat([t, torch.ones_like(t[..., :1])], dim=-1)
+            t = gt.mul(t[..., 0::2], t[..., 1::2])
+        return [t[:, k, 0] for k in range(n_chunks)]
+    chunk_prods = []  # a ragged tail chunk
+    for k in range(n_chunks):
+        lo, hi = k * chunk, min((k + 1) * chunk, num_routed)
+        acc = ratios[:, lo]
+        for j in range(lo + 1, hi):
+            acc = gt.mul(acc, ratios[:, j])
+        chunk_prods.append(acc)
+    return chunk_prods
+
+
 def _ext_reduce(claims, apows):
     """sum_i claims[i] * alpha^i over (S, 2) extension vectors."""
     prod = gt.ext_mul(claims, apows)
@@ -205,6 +229,7 @@ def _ext_reduce(claims, apows):
 # the H100), and eight resident contexts came to 68 of the card's 80 GB.
 _GRAPH_POOLS: dict = {}
 _DEVICE_LOCKS: dict = {}
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _graph_pool(device: torch.device):
@@ -275,17 +300,24 @@ class FusedGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             self.warmup_s = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            with pc.recording() as k12, nc.recording() as k3:
-                with torch.cuda.graph(graph, pool=_graph_pool(dev),
-                                      capture_error_mode="thread_local"):
-                    out = run()
-            torch.cuda.synchronize(dev)
-            self.capture_s = time.perf_counter() - t0
-            self.reserved_growth = torch.cuda.memory_reserved(dev) - reserved
+            # one capture at a time in the process, each on a stream of
+            # its own card: torch.cuda.graph's default capture stream is
+            # one for the process, made on the card current at its first
+            # use, and the aggregator's fan-out captures from one thread a
+            # card
+            with _CAPTURE_LOCK:
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                graph = torch.cuda.CUDAGraph()
+                t0 = time.perf_counter()
+                with pc.recording() as k12, nc.recording() as k3:
+                    with torch.cuda.graph(graph, pool=_graph_pool(dev),
+                                          stream=torch.cuda.Stream(dev),
+                                          capture_error_mode="thread_local"):
+                        out = run()
+                torch.cuda.synchronize(dev)
+                self.capture_s = time.perf_counter() - t0
+                self.reserved_growth = torch.cuda.memory_reserved(dev) - reserved
         self.graph, self._out, self._k12, self._k3 = graph, out, k12, k3
 
 
@@ -419,30 +451,15 @@ class DeviceProverContext:
         order's."""
         common = self.common
         cfg = common.config
-        chunk, n_chunks = common.chunk_size, common.num_chunks
         rows = []
         for c in range(cfg.num_challenges):
             beta, gamma = betas[c], gammas[c]
             nums = gt.add(gt.add(w_routed, gt.mul(beta, self.id_enc)), gamma)
             dens = gt.add(gt.add(w_routed, gt.mul(beta, self.sigma_enc)), gamma)
             ratios = gt.mul(nums, gt.batch_inverse_axis(dens, axis=1))
-            if cfg.num_routed_wires == n_chunks * chunk:
-                t = ratios.reshape(-1, n_chunks, chunk)
-                while t.shape[-1] > 1:
-                    if t.shape[-1] % 2:
-                        t = torch.cat([t, torch.ones_like(t[..., :1])], dim=-1)
-                    t = gt.mul(t[..., 0::2], t[..., 1::2])
-                chunk_prods = [t[:, k, 0] for k in range(n_chunks)]
-            else:  # ragged tail chunk: sequential
-                chunk_prods = []
-                for k in range(n_chunks):
-                    lo, hi = k * chunk, min((k + 1) * chunk, cfg.num_routed_wires)
-                    acc = ratios[:, lo]
-                    for j in range(lo + 1, hi):
-                        acc = gt.mul(acc, ratios[:, j])
-                    chunk_prods.append(acc)
+            chunk_prods = chunk_products(ratios, common)
             row_ratio = chunk_prods[0]
-            for k in range(1, n_chunks):
+            for k in range(1, common.num_chunks):
                 row_ratio = gt.mul(row_ratio, chunk_prods[k])
             z = gt.prefix_prod_exclusive(row_ratio)
             rows.append(z)

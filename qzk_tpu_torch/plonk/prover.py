@@ -10,9 +10,14 @@ SURVEY.md §3.1 steps 1-5):
 
 Steps 2-5 run in plonk/device_prover.py on the device the caller names:
 CUDA by default, the CPU when asked (the plain torch versions of the
-kernels then run).  Under zero knowledge, the wires, zs and quotient
-trees commit leaves salted with four columns each from the witness's
-blinding stream (blinding_stream), drawn on that device.
+kernels then run).  With a mesh active (qzk_tpu_torch.parallel.set_mesh,
+or QZK_SHARD=N) of more than one shard, they run sharded over it
+(parallel/prover_sharded.py) when the circuit meets the mesh's
+preconditions, else on its first device after a RuntimeWarning; the
+mesh's devices then decide where the proof runs.  Under zero knowledge,
+the wires, zs and quotient trees commit leaves salted with four columns
+each from the witness's blinding stream (blinding_stream), drawn on that
+(first) device.
 
 Transcript spec (normative):
   observe circuit digest, observe H(public_inputs);
@@ -26,6 +31,7 @@ Transcript spec (normative):
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -96,8 +102,11 @@ def blinding_stream(values: np.ndarray, device):
 def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
           ) -> ProofWithPublicInputs:
     """Prove the circuit for the partial witness `pw` on `device`
-    (CUDA unless the caller passes "cpu")."""
-    dev = resolve_device(device)
+    (CUDA unless the caller passes "cpu"), or over the active mesh."""
+    from .. import parallel as _parallel
+
+    mesh = _parallel.active_mesh()
+    dev = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
     cfg = common.config
     N = common.degree
     values, _known = run_generators(prover_only.plan, pw)
@@ -127,9 +136,38 @@ def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
             return None
         return _blind_bits((n_leaves, 4))
 
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.prover_sharded import mesh_preconditions_ok, sharded_prove
+
+        if mesh_preconditions_ok(common, mesh):
+            return sharded_prove(
+                common, prover_only, values, blind_block, public_inputs, pi_hash,
+                fresh_salt, timer, mesh,
+            )
+        warnings.warn(
+            f"circuit (degree {N}) does not satisfy the sharded-prove "
+            f"divisibility preconditions for a {mesh.size}-device "
+            "mesh; falling back to the single-device pipeline",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
     from .device_prover import device_prove
 
     return device_prove(
         common, prover_only, values, blind_block, public_inputs, pi_hash,
         fresh_salt, dev, timer,
     )
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The device a prove over `mesh` runs its single-device work on (the
+    first shard's); `device`, when given, must be one of the mesh's."""
+    if device is None:
+        return mesh.devices[0]
+    from .device_prover import context_device
+
+    dev = context_device(resolve_device(device))
+    if dev not in mesh.devices:
+        raise ValueError(f"device {dev} is not a device of the active mesh {mesh}")
+    return mesh.devices[0]

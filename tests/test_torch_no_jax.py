@@ -51,6 +51,12 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.benches.verify",
         "qzk_tpu_torch.plonk.device_prover",
         "qzk_tpu_torch.tools.profile_prover",
+        "qzk_tpu_torch.parallel",
+        "qzk_tpu_torch.parallel.sharded",
+        "qzk_tpu_torch.parallel.kernels",
+        "qzk_tpu_torch.parallel.ntt_sharded",
+        "qzk_tpu_torch.parallel.prover_sharded",
+        "qzk_tpu_torch.benches.ntt_sharded",
     } <= set(_modules())
     code = textwrap.dedent(
         f"""
