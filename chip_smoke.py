@@ -5,7 +5,8 @@
                                          sharded phase's multi-card checks)
 
 Phases, in order:
-  build    build the native (g++) and CUDA (nvcc) libraries, all at once;
+  build    build the native (g++) and CUDA (nvcc) libraries, all at once
+           (poseidon.cu, ntt.cu and field.cu, one nvcc each);
   circuit  build the Wormhole circuit under the zk standard recursion
            config (the main path: the config of bench.py) and the non-zk
            one, the voting circuit under both, and the aggregator's
@@ -35,8 +36,15 @@ Phases, in order:
            with its phases and launches, at the same pin, and three
            pairs of warm fused and staged proves in turn; then one warm
            fused and one warm staged prove under torch.profiler, each
-           summarised (device time by kernel, busy time, idle share),
-           beside the CUDA-event time of one graph replay;
+           summarised (device time by kernel, busy time, idle share,
+           kernel count), beside the CUDA-event time of one graph replay;
+  kernels (field)  hold each field op of K4-K7 (field.cu: the field map,
+           inverses, powers and reductions) against its plain torch
+           version (goldilocks_torch), bit for bit, at every (op, shape,
+           strides) that the warm proves of the prove phase launched it
+           with (goldilocks_cuda.FIELD_SHAPES), on inputs with 0, 1, p-1,
+           2^63 and 2^64-1 planted; the sharded phase does the same for
+           the keys that only the chunk and sharded proves launched;
   aggregate  the recursion layer on the card: the square chunk proof,
            first and warm, its sha256 held to the JAX package's; a
            second zk Wormhole leaf (exit account 0x05..., the first is
@@ -52,15 +60,15 @@ Phases, in order:
   sharded  the sharded prover (qzk_tpu_torch/parallel/) on one card: the
            zk Wormhole over a mesh of 4 shards on cuda:0 and the non-zk
            one over 8, each first and then warm with its phases timed by
-           CUDA events, the kernel launches counted from 0 (K1, K2 and
-           K3 must each be launched), the peak device memory, the
+           CUDA events, the kernel launches counted from 0 (K1-K7 must
+           each be launched), the peak device memory, the
            precondition fallback's warning raised as an error and
            sharded_prove's own count checked, its proof held to the
            single-device pin; the 2^22 NTT through ntt_sharded over 4
-           shards against the single-device K3 result; K1 and K3 against
-           their plain versions at every shape the two warm proves gave
-           them; with two cards or more, the zk proof on a mesh of one
-           shard a card at the same pin, and a (2, 2) tree whose chunks
+           shards against the single-device K3 result; K1, K3 and K4-K7
+           against their plain versions at every shape the two warm
+           proves gave them; with two cards or more, the zk proof on a
+           mesh of one shard a card at the same pin, and a (2, 2) tree whose chunks
            fan out across the cards, its root equal to one worker's on
            one card (with one card, a line says why they did not run);
   artifacts  the resume paths: write the non-zk Wormhole's common.bin,
@@ -93,8 +101,10 @@ Phases, in order:
            4 shards) and *_sharded8 (non-zk, 8 shards); K2 also at
            (1, 12), the device challenger's duplex,
            beside that shape's dependent-chain bound, and summed over
-           the warm zk prove's launches), the card's name and power
-           limit, and the final status line.
+           the warm zk prove's launches; K4-K7 at each family's costliest
+           key of the warm zk prove, and summed over its launches, in all
+           and by op, each key's row in a `field_shapes` JSON line),
+           the card's name and power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
 Any failure ends the run with a non-zero exit code and no status line.
@@ -123,12 +133,14 @@ import torch  # noqa: E402
 
 from qzk_tpu_torch.benches.kernels import (  # noqa: E402
     INT_MULS_PER_CLOCK_PER_SM,
+    INT_MULS_PER_MULMOD,
     INT_MULS_PER_PERM,
     bound_ms,
     ntt_axis0_work,
     peak_int_muls,
 )
 from qzk_tpu_torch.ops import goldilocks as gl  # noqa: E402
+from qzk_tpu_torch.ops import goldilocks_cuda as gc  # noqa: E402
 from qzk_tpu_torch.ops import goldilocks_torch as gt  # noqa: E402
 from qzk_tpu_torch.ops import ntt as ntt_mod  # noqa: E402
 from qzk_tpu_torch.ops import ntt_cuda as nc  # noqa: E402
@@ -199,7 +211,7 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with pc.recording(), nc.recording(), gc.recording(), torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -247,14 +259,15 @@ def phase_build(state) -> None:
         out = fn()
         return out, time.perf_counter() - t0
 
-    builds = {"native": native.get_lib, "poseidon": pc.library_path, "ntt": nc.library_path}
+    builds = {"native": native.get_lib, "poseidon": pc.library_path, "ntt": nc.library_path,
+              "field": gc.library_path}
     with Phase("build"), ThreadPoolExecutor(len(builds)) as pool:
         done = {k: pool.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in done.items()}
     if done["native"][0] is None:
         raise RuntimeError("native host library did not build")
     log("build (in parallel): " + ", ".join(f"{k} {t:.2f} s" for k, (_, t) in done.items()))
-    for key in ("poseidon", "ntt"):
+    for key in ("poseidon", "ntt", "field"):
         so = done[key][0]
         log(f"  {os.path.basename(so)}")
         with open(so + ".log") as f:
@@ -372,6 +385,182 @@ def phase_kernels(state) -> None:
             results.append(f"K3 ragged ({b}, {1 << log_n}, {m})")
     state["max_abs_err"] = err
     log(f"kernels: bit-exact against the plain torch versions: {', '.join(results)}")
+
+
+# The field kernels (K4-K7, csrc/field.cu): each family's record name
+# and JAX counterpart (XLA code of goldilocks_jax; no Pallas kernel).
+FIELD_RECORDS = {
+    "field_map": ("K4 field_map", "qzk_tpu/ops/goldilocks_jax.py:47-113, :238-248"),
+    "field_inverse": ("K5 field_inverse",
+                      "qzk_tpu/ops/goldilocks_jax.py:129-150, :166-190, :250-256"),
+    "field_powers": ("K6 field_powers", "qzk_tpu/ops/goldilocks_jax.py:153-163, :258-268"),
+    "field_reduce": ("K7 field_reduce", "qzk_tpu/ops/goldilocks_jax.py:192-227"),
+}
+FIELD_EDGES = np.array([0, 1, gl.P - 1, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
+
+
+def key_words(key) -> int:
+    """The words a FIELD_SHAPES key's largest operand spans."""
+    _, shape, strides, _ = key
+    return max(1 + sum((n - 1) * s for n, s in zip(shape, st)) for st in strides)
+
+
+class FieldPool:
+    """Random 64-bit words on the card, with 0, 1, p-1, 2^63 and 2^64-1
+    planted at one word in 64; make(n) is n of them from a random start,
+    so that the operands of one call differ."""
+
+    def __init__(self, rng, words: int, dev):
+        x = rng.integers(0, 1 << 64, size=words, dtype=np.uint64)
+        idx = rng.integers(0, words, size=max(1, words // 64))
+        x[idx] = FIELD_EDGES[idx % len(FIELD_EDGES)]
+        self.rng, self.words = rng, gt.from_u64(x, dev)
+
+    def make(self, n: int) -> torch.Tensor:
+        start = int(self.rng.integers(0, self.words.numel() - n + 1))
+        return self.words[start:start + n]
+
+
+def field_pool(rng, keys, dev) -> FieldPool:
+    return FieldPool(rng, max((key_words(k) for k in keys), default=1) + 4096, dev)
+
+
+def check_field(keys, rng, dev, err: dict) -> int:
+    """Each FIELD_SHAPES key's call through its kernel against the plain
+    version (goldilocks_torch) on the same inputs, bit for bit; raises
+    on a difference.  Returns the number of keys checked."""
+    pool = field_pool(rng, keys, dev)
+    for key in sorted(keys, key=repr):
+        fn, args = gc.call_of(key, pool.make)
+        got = fn(*args)
+        want = getattr(gt, key[0])(*args)
+        torch.cuda.synchronize()
+        family = gc.FAMILY_OF[key[0]]
+        if not torch.equal(got, want):
+            require_equal(f"{FIELD_RECORDS[family][0]} {key}", got, want)
+        err.setdefault(family, 0)
+    return len(keys)
+
+
+def phase_field(state) -> None:
+    """K4-K7 against their plain versions at every (op, shape, strides)
+    that the warm proves of the prove phase launched: the zk Wormhole's
+    first, then the other circuits' and the staged prove's."""
+    dev = torch.device("cuda")
+    runs = {**state["runs"], **state["staged_runs"]}
+    keys = set().union(*(r["field_shapes"] for r in runs.values()))
+    with Phase("kernels (field, K4-K7)"):
+        n = check_field(keys, np.random.default_rng(14), dev, state["max_abs_err"])
+    state["field_checked"] = keys
+    by_op = Counter(k[0] for k in keys)
+    log(f"kernels (field): bit-exact against the plain torch versions at {n} (op, shape, "
+        f"strides) keys of {len(runs)} warm proves, inputs with 0, 1, p-1, 2^63 and "
+        f"2^64-1 planted: " + ", ".join(f"{op} {c}" for op, c in sorted(by_op.items())))
+
+
+def field_work(key) -> tuple[int, int, int]:
+    """(bytes, 32-bit multiplies, dependent 32-bit multiply-adds a
+    thread) of one call of a FIELD_SHAPES key: each operand's distinct
+    words read once and the output written once; five multiplies a
+    field multiply (INT_MULS_PER_MULMOD)."""
+    op, shape, strides, extra = key
+    mm = INT_MULS_PER_MULMOD
+
+    def distinct(shp, st):
+        return int(np.prod([n for n, s in zip(shp, st) if s != 0], dtype=np.int64))
+
+    numel = int(np.prod(shape, dtype=np.int64))
+    inv_chain = 64  # the Fermat walk's dependent squarings
+    if op in ("powers_vec", "ext_powers"):
+        # n - 1 products make the n powers, whatever order a kernel takes
+        n = shape[0]
+        ext = op == "ext_powers"
+        chain = max(1, (n - 1).bit_length()) * 2 * (3 if ext else 1)
+        return 8 * (numel + 1 + ext), mm * (5 if ext else 1) * max(0, n - 1), 2 * chain
+    if op in ("sum_mod", "batch_inverse_axis", "prefix_prod_exclusive"):
+        axis = extra or 0
+        k = shape[axis]
+        lanes = numel // max(1, k)
+        read = distinct(shape, strides[0])
+        if op == "sum_mod":
+            return 8 * (read + lanes), 0, 0
+        if op == "prefix_prod_exclusive":
+            # n - 1 multiplies a lane; the chain of a scan over the T
+            # threads of the kernel's block: a chunk's walk, then log2(T)
+            t = gc.prefix_threads(k)
+            chain = -(-k // t) + t.bit_length() - 1
+            return 8 * (read + numel), mm * lanes * max(0, k - 1), 2 * chain
+        return 8 * (read + numel), mm * lanes * (3 * k - 1 + 2 * 63), 2 * (2 * k + inv_chain)
+    read = sum(distinct(shape, st) for st in strides)
+    muls = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "square": 1, "mul_small": 1,
+            "reduce128": 0.2, "ext_mul": 5 / 2, "inverse": 126,
+            "ext_inverse_vec": 131 / 2}[op]  # field multiplies an output word
+    chain = {"inverse": inv_chain, "ext_inverse_vec": inv_chain + 4}.get(op, 1)
+    return 8 * (read + numel), int(mm * muls * numel), 2 * chain
+
+
+def time_field(counts: Counter, rng, dev) -> list[dict]:
+    """Each key of a warm prove's FIELD_SHAPES: the kernel's time
+    (graph_ms), the plain version's (CUDA events, 2 calls) and the bound,
+    with the key's count in the prove."""
+    pool = field_pool(rng, counts, dev)
+    rows = []
+    for key, count in sorted(counts.items(), key=lambda kv: repr(kv[0])):
+        fn, args = gc.call_of(key, pool.make)
+        plain = getattr(gt, key[0])
+        nbytes, ops, chain = field_work(key)
+        bound, by = bound_ms(nbytes, ops)
+        rows.append({"op": key[0], "family": gc.FAMILY_OF[key[0]], "shape": list(key[1]),
+                     "strides": [list(s) for s in key[2]], "extra": key[3], "count": count,
+                     "ms": graph_ms(lambda: fn(*args)),
+                     "plain_ms": cuda_ms(lambda: plain(*args), iters=2, warmup=1),
+                     "bound_ms": bound, "bound_by": by, "chain_bound_ms": chain_ms(chain),
+                     "library_ms": None})
+    return rows
+
+
+def chain_ms(imads: int) -> float:
+    """A chain of dependent 32-bit multiply-adds at IMAD_LATENCY_CLOCKS
+    each, on the clock that peak_int_muls reads."""
+    clock_hz = peak_int_muls() / (INT_MULS_PER_CLOCK_PER_SM
+                                  * torch.cuda.get_device_properties(0).multi_processor_count)
+    return imads * IMAD_LATENCY_CLOCKS / clock_hz * 1e3
+
+
+def field_records(state, rec) -> list[dict]:
+    """The K4-K7 records of the kernels line: each family at its most
+    costly key of the warm zk prove (by its bound), with sums over the
+    prove's launches, in all and by op.  Every key's row is logged as
+    one JSON line, {"field_shapes": [...]}."""
+    dev = torch.device("cuda")
+    rows = time_field(state["runs"]["wormhole_zk"]["field_shapes"],
+                      np.random.default_rng(15), dev)
+    log(json.dumps({"field_shapes": rows}))
+    records = []
+    for fam, (name, replaces) in FIELD_RECORDS.items():
+        mine = [r for r in rows if r["family"] == fam]
+        top = max(mine, key=lambda r: r["bound_ms"])
+        r = rec(name, "qzk_tpu_torch/ops/csrc/field.cu", replaces, fam, top["ms"],
+                top["plain_ms"], 0, 0, [top["op"], top["shape"], top["strides"]])
+        r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                 chain_bound_ms=top["chain_bound_ms"])
+        ops = {}
+        for op in gc.FAMILIES[fam]:
+            sel = [x for x in mine if x["op"] == op]
+            if sel:
+                ops[op] = {"calls": sum(x["count"] for x in sel), "shapes": len(sel),
+                           **{f"prove_{k}": sum(x["count"] * x[k] for x in sel)
+                              for k in ("ms", "plain_ms", "bound_ms", "chain_bound_ms")}}
+        r.update({f"prove_{k}": sum(x["count"] * x[k] for x in mine)
+                  for k in ("ms", "plain_ms", "bound_ms", "chain_bound_ms")})
+        r["ops"] = ops
+        log(f"{name} per warm zk prove: {len(mine)} keys, {sum(x['count'] for x in mine)} "
+            f"calls, {r['prove_ms']:.4f} ms (plain {r['prove_plain_ms']:.4f} ms, bound "
+            f"{r['prove_bound_ms']:.4f} ms); by op: " + "; ".join(
+                f"{op} {v['calls']} calls {v['prove_ms']:.4f} ms (bound "
+                f"{v['prove_bound_ms']:.4f})" for op, v in ops.items()))
+        records.append(r)
+    return records
 
 
 def phase_ntt(state) -> None:
@@ -522,7 +711,7 @@ def time_kernels(state) -> list[dict]:
         k2[f"prove_bound_ms{tag}"] = k2["bound_ms"] + duplexes * k2_one["bound_ms_1x12"]
         log(f"K2 per warm {labels[tag]} fused prove: 1 batch of 2^18 and {duplexes} duplexes at "
             f"(1, 12), {k2[f'prove_ms{tag}']:.4f} ms (bound {k2[f'prove_bound_ms{tag}']:.4f} ms)")
-    return [k1, k2, k3]
+    return [k1, k2, k3, *field_records(state, rec)]
 
 
 # The bound of one permutation in one thread (K2 at (1, 12)) is its
@@ -537,14 +726,12 @@ IMAD_LATENCY_CLOCKS = 4
 
 
 def chain_bound_ms() -> float:
-    clock_hz = peak_int_muls() / (INT_MULS_PER_CLOCK_PER_SM
-                                  * torch.cuda.get_device_properties(0).multi_processor_count)
-    return CHAIN_IMADS * IMAD_LATENCY_CLOCKS / clock_hz * 1e3
+    return chain_ms(CHAIN_IMADS)
 
 
 # The circuits the run proves: the zk Wormhole is the main path.
 PATHS = ("wormhole_zk", "wormhole_nonzk", "voting_nonzk", "voting_zk")
-KERNELS = ("hash_rows", "permute", "ntt_axis0")
+KERNELS = ("hash_rows", "permute", "ntt_axis0", *gc.LAUNCHES)
 
 
 def _pins() -> dict:
@@ -635,9 +822,10 @@ def counted(path: str, fn):
     have been launched on `path`.  Returns fn's result and the counts."""
     pc.reset_launches()
     nc.reset_launches()
+    gc.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    launches = {**pc.LAUNCHES, **nc.LAUNCHES}
+    launches = {**pc.LAUNCHES, **nc.LAUNCHES, **gc.LAUNCHES}
     for key in KERNELS:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the {path} path")
@@ -646,7 +834,9 @@ def counted(path: str, fn):
 
 def launch_text(launches) -> str:
     return (f"launches K1 {launches['hash_rows']}, K2 {launches['permute']}, "
-            f"K3 {launches['ntt_axis0']}")
+            f"K3 {launches['ntt_axis0']}, K4 {launches['field_map']}, "
+            f"K5 {launches['field_inverse']}, K6 {launches['field_powers']}, "
+            f"K7 {launches['field_reduce']}")
 
 
 @contextlib.contextmanager
@@ -737,6 +927,7 @@ def record_run(runs, name, proof, prove, launches, seconds, timer) -> None:
     runs[name] = {
         "proof": proof, "prove": prove, "launches": launches, "seconds": seconds,
         "k1_shapes": Counter(pc.K1_SHAPES), "k3_shapes": Counter(nc.K3_SHAPES),
+        "field_shapes": Counter(gc.FIELD_SHAPES),
     }
     for phase, ms in timer.results():
         log(f"  prove {name} phase {phase}: {ms / 1e3:.4f} s")
@@ -813,6 +1004,9 @@ def profile_pair(state) -> None:
         f"{summaries['staged']['idle_share']:.4f}); fused busy "
         f"{summaries['fused']['busy_ms']:.4f} ms of {summaries['fused']['window_ms']:.4f} ms "
         f"(idle share {summaries['fused']['idle_share']:.4f})")
+    log(f"profile: kernels a warm zk Wormhole prove: fused {summaries['fused']['kernels']} "
+        f"(device busy {summaries['fused']['busy_ms']:.4f} ms), staged "
+        f"{summaries['staged']['kernels']} (device busy {summaries['staged']['busy_ms']:.4f} ms)")
     log(json.dumps({"profiles": {p: {k: v for k, v in r.items() if k != "by_name"}
                                  for p, r in summaries.items()}, "replay_ms": replay_ms}))
 
@@ -885,7 +1079,7 @@ def prove_chunk_timed(state, name, prove, chunk=None, runs=None):
     peak = torch.cuda.max_memory_allocated()
     runs[name] = {
         "launches": launches, "k1_shapes": Counter(pc.K1_SHAPES),
-        "k3_shapes": Counter(nc.K3_SHAPES),
+        "k3_shapes": Counter(nc.K3_SHAPES), "field_shapes": Counter(gc.FIELD_SHAPES),
     }
     for phase, ms in timer.results():
         log(f"  aggregate {name} phase {phase}: {ms / 1e3:.4f} s")
@@ -1047,8 +1241,11 @@ def check_sharded_shapes(state) -> None:
     rng = np.random.default_rng(13)
     k1 = set().union(*(r["k1_shapes"] for r in state["sharded_runs"].values()))
     k3 = set().union(*(r["k3_shapes"] for r in state["sharded_runs"].values()))
+    later = {**state["agg_runs"], **state["staged_runs"], **state["sharded_runs"]}
+    field = set().union(*(r["field_shapes"] for r in later.values())) - state["field_checked"]
     err = state["max_abs_err"]
     with Phase("sharded kernel shapes"):
+        check_field(field, rng, dev, err)
         for n, w in sorted(k1):
             x = edge_rows(rng, n, w, dev)
             got = pc.hash_no_pad_rows(x)
@@ -1064,8 +1261,9 @@ def check_sharded_shapes(state) -> None:
             err["ntt_axis0"] = max(err["ntt_axis0"], check_k3(
                 f"K3 sharded shape ({b}, 2^{log_n}, {m}) strided={strided} twiddle={tw}",
                 x, stw, twiddle))
-    log(f"sharded kernel shapes: K1 at {len(k1)} shapes, K3 at {len(k3)}, bit-exact against "
-        f"the plain torch versions: K1 {sorted(k1)}; K3 {sorted(k3)}")
+    log(f"sharded kernel shapes: K1 at {len(k1)} shapes, K3 at {len(k3)}, K4-K7 at {len(field)} "
+        f"(op, shape, strides) keys of the chunk and sharded proves not checked before, "
+        f"bit-exact against the plain torch versions: K1 {sorted(k1)}; K3 {sorted(k3)}")
 
 
 def multi_card(state) -> None:
@@ -1396,7 +1594,8 @@ def main() -> int:
         log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
         return 0
     for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
-                  phase_aggregate, phase_sharded, phase_artifacts, phase_verify, phase_report):
+                  phase_field, phase_aggregate, phase_sharded, phase_artifacts, phase_verify,
+                  phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import goldilocks as gl
-from . import goldilocks_torch as gt
+from . import goldilocks_cuda as gt
 from . import ntt as ntt_mod
 from . import ntt_cuda
 from .ntt_torch import stage_tw_table

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import goldilocks as gl
-from ..ops import goldilocks_torch as gt
+from ..ops import goldilocks_cuda as gt
 from ..ops import ntt as ntt_mod
 from ..ops import ntt_fourstep as nfs
 from ..utils.device import device_constant

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..ops import goldilocks as gl
-from ..ops import goldilocks_torch as gt
+from ..ops import goldilocks_cuda as gt
 from ..ops import merkle as mk
 from ..ops import ntt as ntt_mod
 from ..ops.transcript import Challenger
@@ -192,7 +192,7 @@ class ShardedProverContext:
         d = self.d
         n_pp = common.num_partial_products
         betas_b, gammas_b = replicate(betas, mesh), replicate(gammas, mesh)
-        local = []  # per shard, per challenge: (chunk products, inclusive prefix)
+        local = []  # per shard, per challenge: (chunk products, exclusive prefix, total)
         for i in range(d):
             per_c = []
             for c in range(cfg.num_challenges):
@@ -204,29 +204,22 @@ class ShardedProverContext:
                 row_ratio = chunk_prods[0]
                 for k in range(1, common.num_chunks):
                     row_ratio = gt.mul(row_ratio, chunk_prods[k])
-                # local inclusive scan (Hillis-Steele)
-                incl = row_ratio
-                k_step = 1
-                n_loc = incl.shape[0]
-                while k_step < n_loc:
-                    shifted = torch.cat([torch.ones_like(incl[:k_step]), incl[:-k_step]])
-                    incl = gt.mul(incl, shifted)
-                    k_step *= 2
-                per_c.append((chunk_prods, incl))
+                # local exclusive scan, and the shard's product
+                excl = gt.prefix_prod_exclusive(row_ratio)
+                per_c.append((chunk_prods, excl, gt.mul(excl[-1:], row_ratio[-1:])))
             local.append(per_c)
         rows = [[] for _ in range(d)]
         for c in range(cfg.num_challenges):
             # distributed exclusive prefix product over N: the shards'
             # totals, then each shard's offset from those before it
-            totals = all_gather([local[i][c][1][-1:] for i in range(d)], mesh)  # (d,)
+            totals = all_gather([local[i][c][2] for i in range(d)], mesh)  # (d,)
             for my in range(d):
-                chunk_prods, incl = local[my][c]
-                idx = torch.arange(d, device=incl.device)
+                chunk_prods, excl, _ = local[my][c]
+                idx = torch.arange(d, device=excl.device)
                 masked = torch.where(idx < my, totals[my], torch.ones_like(totals[my]))
                 offset = masked[0]
                 for i in range(1, d):
                     offset = gt.mul(offset, masked[i])
-                excl = torch.cat([torch.ones_like(incl[:1]), incl[:-1]])
                 z = gt.mul(offset, excl)
                 rows[my].append(z)
                 cum = z

@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import goldilocks_torch as gt
+from ..ops import goldilocks_cuda as gt
 from ..ops import poseidon_cuda as pc
 from ..plonk.device_prover import context_device
 from . import kernels

@@ -32,13 +32,14 @@ Merkle hashing runs on the CUDA row sponge (K1) and every permutation
 (the PoW batch, the device challenger's duplexes) on the CUDA
 permutation (K2), through ops/poseidon_cuda.py; every iNTT and coset LDE
 is the four-step transform on the CUDA NTT kernel (K3), through
-ops/ntt_fourstep.py; the rest is torch tensor code on int64 bit patterns
-(ops/goldilocks_torch.py).  The stages upload nothing while they run:
-the constants they need are the context's, or per-device tables built
-at first use (utils/device.py::device_constant).  Under zero knowledge
-the wires, zs and quotient leaves carry four salt columns each (the
-preprocessed tree none), which the FRI batches skip and the query
-openings carry.
+ops/ntt_fourstep.py; each call of the field arithmetic on int64 bit
+patterns is one launch of a field kernel (K4-K7), through
+ops/goldilocks_cuda.py, and the rest is torch tensor code (cat, stack,
+index).  The stages upload nothing while they run: the constants they
+need are the context's, or per-device tables built at first use
+(utils/device.py::device_constant).  Under zero knowledge the wires, zs
+and quotient leaves carry four salt columns each (the preprocessed tree
+none), which the FRI batches skip and the query openings carry.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ import numpy as np
 import torch
 
 from ..ops import goldilocks as gl
-from ..ops import goldilocks_torch as gt
+from ..ops import goldilocks_cuda as gt
 from ..ops import merkle as mk
 from ..ops import ntt as ntt_mod
 from ..ops import ntt_cuda as nc
@@ -260,8 +261,8 @@ class FusedGraph:
     tensors, overwritten by the next replay: the caller reads them
     under the context's lock.  The kernel launches that the capture
     recorded are counted at each replay (poseidon_cuda.count_replay,
-    ntt_cuda.count_replay).  The graph lives as long as this object,
-    which the context holds, in the card's shared pool (_graph_pool)."""
+    ntt_cuda.count_replay, goldilocks_cuda.count_replay).  The graph
+    lives as long as this object, which the context holds, in the card's shared pool (_graph_pool)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -280,6 +281,7 @@ class FusedGraph:
         self.replays += 1
         pc.count_replay(self._k12)
         nc.count_replay(self._k3)
+        gt.count_replay(self._field)
         return self._out
 
     def _capture(self, body, wire_matrix, pi_hash, salts) -> None:
@@ -310,7 +312,8 @@ class FusedGraph:
                 reserved = torch.cuda.memory_reserved(dev)
                 graph = torch.cuda.CUDAGraph()
                 t0 = time.perf_counter()
-                with pc.recording() as k12, nc.recording() as k3:
+                with pc.recording() as k12, nc.recording() as k3, \
+                        gt.recording() as field:
                     with torch.cuda.graph(graph, pool=_graph_pool(dev),
                                           stream=torch.cuda.Stream(dev),
                                           capture_error_mode="thread_local"):
@@ -318,7 +321,8 @@ class FusedGraph:
                 torch.cuda.synchronize(dev)
                 self.capture_s = time.perf_counter() - t0
                 self.reserved_growth = torch.cuda.memory_reserved(dev) - reserved
-        self.graph, self._out, self._k12, self._k3 = graph, out, k12, k3
+        self.graph, self._out = graph, out
+        self._k12, self._k3, self._field = k12, k3, field
 
 
 class DeviceProverContext:

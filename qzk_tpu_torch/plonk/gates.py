@@ -155,7 +155,7 @@ class TorchAlgebra:
     coset evaluation of gates without an eval_constraints_torch."""
 
     def __init__(self, device):
-        from ..ops import goldilocks_torch as gt
+        from ..ops import goldilocks_cuda as gt
 
         self._gt = gt
         self.device = device
@@ -239,7 +239,7 @@ class ArithmeticGate(Gate):
     def eval_constraints_torch(self, wires_mat, const_mat, pi_hash):
         """Stacked device evaluation: (num_cons, M) rows in the same
         order as eval_constraints."""
-        from ..ops import goldilocks_torch as gt
+        from ..ops import goldilocks_cuda as gt
 
         idx = np.array(
             [self.wires_op(i) for i in range(self.num_ops)], dtype=np.int64
@@ -482,7 +482,7 @@ class PoseidonGate(Gate):
         exact small-int accumulation."""
         import torch
 
-        from ..ops import goldilocks_torch as gt
+        from ..ops import goldilocks_cuda as gt
 
         W = self.WIDTH
         dev = wires_mat.device
@@ -581,7 +581,7 @@ class BitDecompGate(Gate):
         recomposition check)."""
         import torch
 
-        from ..ops import goldilocks_torch as gt
+        from ..ops import goldilocks_cuda as gt
 
         v_idx = [self.wires_op(i)[0] for i in range(self.num_ops)]
         bit_idx = np.array(

@@ -111,7 +111,7 @@ def eval_vanishing_torch(
     eval_vanishing_jax, step for step)."""
     import torch
 
-    from ..ops import goldilocks_torch as gt
+    from ..ops import goldilocks_cuda as gt
     from .gates import TorchAlgebra
 
     cfg = common.config

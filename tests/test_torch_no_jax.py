@@ -57,6 +57,7 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.parallel.ntt_sharded",
         "qzk_tpu_torch.parallel.prover_sharded",
         "qzk_tpu_torch.benches.ntt_sharded",
+        "qzk_tpu_torch.ops.goldilocks_cuda",
     } <= set(_modules())
     code = textwrap.dedent(
         f"""
