@@ -38,13 +38,15 @@ Phases, in order:
            fused and one warm staged prove under torch.profiler, each
            summarised (device time by kernel, busy time, idle share,
            kernel count), beside the CUDA-event time of one graph replay;
-  kernels (field)  hold each field op of K4-K7 (field.cu: the field map,
-           inverses, powers and reductions) against its plain torch
-           version (goldilocks_torch), bit for bit, at every (op, shape,
-           strides) that the warm proves of the prove phase launched it
-           with (goldilocks_cuda.FIELD_SHAPES), on inputs with 0, 1, p-1,
-           2^63 and 2^64-1 planted; the sharded phase does the same for
-           the keys that only the chunk and sharded proves launched;
+  kernels (field)  hold each field op of K4-K7 (field.cu: the field map
+           and the Poseidon gate's round, inverses, powers, sums, weighted
+           sums and chunk products) against its plain torch version
+           (goldilocks_torch, poseidon_torch for the round), bit for bit,
+           at every (op, shape, strides) that the warm proves of the
+           prove phase launched it with (goldilocks_cuda.FIELD_SHAPES),
+           and pow7 at the round's (12, LDE) shape, on inputs with 0, 1,
+           p-1, 2^63 and 2^64-1 planted; the sharded phase does the same
+           for the keys that only the chunk and sharded proves launched;
   aggregate  the recursion layer on the card: the square chunk proof,
            first and warm, its sha256 held to the JAX package's; a
            second zk Wormhole leaf (exit account 0x05..., the first is
@@ -102,8 +104,10 @@ Phases, in order:
            (1, 12), the device challenger's duplex,
            beside that shape's dependent-chain bound, and summed over
            the warm zk prove's launches; K4-K7 at each family's costliest
-           key of the warm zk prove, and summed over its launches, in all
-           and by op, each key's row in a `field_shapes` JSON line),
+           key of the warm zk prove (K4 and K7 among the keys of their
+           redesigned ops: pow7, the round, dot_mod, prod_chunks), and
+           summed over its launches, in all and by op, each key's row in
+           a `field_shapes` JSON line),
            the card's name and power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
@@ -388,14 +392,20 @@ def phase_kernels(state) -> None:
 
 
 # The field kernels (K4-K7, csrc/field.cu): each family's record name
-# and JAX counterpart (XLA code of goldilocks_jax; no Pallas kernel).
+# and JAX counterpart (XLA code of goldilocks_jax and of the Poseidon
+# gate's round; no Pallas kernel).
 FIELD_RECORDS = {
-    "field_map": ("K4 field_map", "qzk_tpu/ops/goldilocks_jax.py:47-113, :238-248"),
+    "field_map": ("K4 field_map", "qzk_tpu/ops/goldilocks_jax.py:47-113, :238-248; "
+                                  "qzk_tpu/plonk/gates.py:489-500"),
     "field_inverse": ("K5 field_inverse",
                       "qzk_tpu/ops/goldilocks_jax.py:129-150, :166-190, :250-256"),
     "field_powers": ("K6 field_powers", "qzk_tpu/ops/goldilocks_jax.py:153-163, :258-268"),
-    "field_reduce": ("K7 field_reduce", "qzk_tpu/ops/goldilocks_jax.py:192-227"),
+    "field_reduce": ("K7 field_reduce", "qzk_tpu/ops/goldilocks_jax.py:192-227; "
+                                        "qzk_tpu/plonk/vanishing.py:140-161"),
 }
+# The ops of K4's and K7's redesign: their records take the costliest of
+# these keys.
+REDESIGNED_OPS = ("pow7", "mds_full", "mds_partial", "dot_mod", "prod_chunks")
 FIELD_EDGES = np.array([0, 1, gl.P - 1, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
 
 
@@ -433,7 +443,7 @@ def check_field(keys, rng, dev, err: dict) -> int:
     for key in sorted(keys, key=repr):
         fn, args = gc.call_of(key, pool.make)
         got = fn(*args)
-        want = getattr(gt, key[0])(*args)
+        want = gc.plain_of(key[0])(*args)
         torch.cuda.synchronize()
         family = gc.FAMILY_OF[key[0]]
         if not torch.equal(got, want):
@@ -449,6 +459,9 @@ def phase_field(state) -> None:
     dev = torch.device("cuda")
     runs = {**state["runs"], **state["staged_runs"]}
     keys = set().union(*(r["field_shapes"] for r in runs.values()))
+    # the S-box alone, which the round ops fold in, at the round's shape
+    m = state["common"].lde_size
+    keys.add(("pow7", (12, m), ((m, 1),), None))
     with Phase("kernels (field, K4-K7)"):
         n = check_field(keys, np.random.default_rng(14), dev, state["max_abs_err"])
     state["field_checked"] = keys
@@ -471,6 +484,32 @@ def field_work(key) -> tuple[int, int, int]:
 
     numel = int(np.prod(shape, dtype=np.int64))
     inv_chain = 64  # the Fermat walk's dependent squarings
+    if op in ("mds_full", "mds_partial"):
+        # the state's words read once (mds_partial: row 0 from x0, rows
+        # 1-11 from x), 12 m written; a column's 144 products of a word's
+        # two 32-bit halves by an MDS entry (2 multiplies each), one
+        # multiply a lane's reduction, and the S-box's 4 field multiplies
+        # on 12 words (full) or 1 (partial); chain: the S-box's 3 dependent
+        # multiplies, the sum and the reduction
+        m = shape[1]
+        if op == "mds_full":
+            read, sboxes = distinct(shape, strides[0]), 12
+        else:
+            read, sboxes = distinct(shape[1:], strides[0]) + distinct((11, m), strides[1]), 1
+        muls = m * (2 * 144 + 12 + sboxes * 4 * mm)
+        return 8 * (read + numel), muls, 2 * 3 + 2
+    if op == "dot_mod":
+        k = shape[extra]
+        lanes = numel // max(1, k)
+        read = distinct(shape, strides[0]) + distinct(shape, strides[1])
+        return 8 * (read + lanes), mm * numel, 2
+    if op == "prod_chunks":
+        axis, chunk = extra
+        k = shape[axis]
+        lanes, runs = numel // max(1, k), -(-k // chunk)
+        # k - runs multiplies a lane make its runs' products
+        return (8 * (distinct(shape, strides[0]) + lanes * runs), mm * lanes * (k - runs),
+                2 * max(0, min(chunk, k) - 1))
     if op in ("powers_vec", "ext_powers"):
         # n - 1 products make the n powers, whatever order a kernel takes
         n = shape[0]
@@ -493,9 +532,9 @@ def field_work(key) -> tuple[int, int, int]:
         return 8 * (read + numel), mm * lanes * (3 * k - 1 + 2 * 63), 2 * (2 * k + inv_chain)
     read = sum(distinct(shape, st) for st in strides)
     muls = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "square": 1, "mul_small": 1,
-            "reduce128": 0.2, "ext_mul": 5 / 2, "inverse": 126,
+            "reduce128": 0.2, "ext_mul": 5 / 2, "pow7": 4, "inverse": 126,
             "ext_inverse_vec": 131 / 2}[op]  # field multiplies an output word
-    chain = {"inverse": inv_chain, "ext_inverse_vec": inv_chain + 4}.get(op, 1)
+    chain = {"inverse": inv_chain, "ext_inverse_vec": inv_chain + 4, "pow7": 3}.get(op, 1)
     return 8 * (read + numel), int(mm * muls * numel), 2 * chain
 
 
@@ -507,7 +546,7 @@ def time_field(counts: Counter, rng, dev) -> list[dict]:
     rows = []
     for key, count in sorted(counts.items(), key=lambda kv: repr(kv[0])):
         fn, args = gc.call_of(key, pool.make)
-        plain = getattr(gt, key[0])
+        plain = gc.plain_of(key[0])
         nbytes, ops, chain = field_work(key)
         bound, by = bound_ms(nbytes, ops)
         rows.append({"op": key[0], "family": gc.FAMILY_OF[key[0]], "shape": list(key[1]),
@@ -529,9 +568,10 @@ def chain_ms(imads: int) -> float:
 
 def field_records(state, rec) -> list[dict]:
     """The K4-K7 records of the kernels line: each family at its most
-    costly key of the warm zk prove (by its bound), with sums over the
-    prove's launches, in all and by op.  Every key's row is logged as
-    one JSON line, {"field_shapes": [...]}."""
+    costly key of the warm zk prove (by its bound; K4 and K7 among the
+    keys of REDESIGNED_OPS), with sums over the prove's launches, in all
+    and by op.  Every key's row is logged as one JSON line,
+    {"field_shapes": [...]}."""
     dev = torch.device("cuda")
     rows = time_field(state["runs"]["wormhole_zk"]["field_shapes"],
                       np.random.default_rng(15), dev)
@@ -539,7 +579,8 @@ def field_records(state, rec) -> list[dict]:
     records = []
     for fam, (name, replaces) in FIELD_RECORDS.items():
         mine = [r for r in rows if r["family"] == fam]
-        top = max(mine, key=lambda r: r["bound_ms"])
+        top = max([r for r in mine if r["op"] in REDESIGNED_OPS] or mine,
+                  key=lambda r: r["bound_ms"])
         r = rec(name, "qzk_tpu_torch/ops/csrc/field.cu", replaces, fam, top["ms"],
                 top["plain_ms"], 0, 0, [top["op"], top["shape"], top["strides"]])
         r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"],
@@ -991,7 +1032,7 @@ def profile_pair(state) -> None:
                 t0 = time.perf_counter()
                 seconds = prof.profile_prove(prove, trace, dev)
                 t1 = time.perf_counter()
-            summaries[path] = prof.summarize(trace, top=12, out=lambda line: log("  " + line))
+            summaries[path] = prof.summarize(trace, top=40, out=lambda line: log("  " + line))
             log(f"profile {path}: {seconds:.4f} s on the host clock under the profiler; "
                 f"profile and export {t1 - t0:.3f} s, a {os.path.getsize(trace)}-byte trace, "
                 f"parsed in {time.perf_counter() - t1:.3f} s")

@@ -1,21 +1,35 @@
 // K4-K7: the Goldilocks field code of the prove path, hand-written for
 // Hopper (sm_90a) on goldilocks.cuh.
 //
-// In the JAX package this code is XLA code (qzk_tpu/ops/goldilocks_jax.py):
-// under jax.jit XLA fuses each field operation into one loop, and the
-// scans of inverse and batch_inverse_axis run on the device.  Their plain
-// torch version (ops/goldilocks_torch.py) launches about 25 kernels a
-// multiply and one kernel chain a scan step.  Here one call is one launch
-// (sum_mod past 2 * SUM_SMEM_WORDS elements along its axis: one more a
-// halving, which qzk_sum_mod launches itself):
+// In the JAX package this code is XLA code (qzk_tpu/ops/goldilocks_jax.py
+// and the Poseidon gate's round walk in qzk_tpu/plonk/gates.py): under
+// jax.jit XLA fuses each field operation into one loop, and the scans of
+// inverse and batch_inverse_axis run on the device.  Their plain torch
+// version (ops/goldilocks_torch.py, and ops/poseidon_torch.py for the
+// gate's MDS layer) launches about 25 kernels a multiply and one kernel
+// chain a scan step.  Here one call is one launch (sum_mod and dot_mod
+// past the shared memory of one block: one more a halving, which
+// qzk_sum_mod launches itself):
 //
-//   K4 field_map      add, sub, neg, mul, square, mul_small, reduce128 and
-//                     ext_mul, one element a thread, over a broadcast of up
-//                     to 4 dims by element strides (stride 0 on a broadcast
-//                     dim), the output contiguous.  Replaces
-//                     goldilocks_jax.py:47-113 and :238-248.  Bound: bytes,
-//                     each operand's distinct words read once and the output
-//                     written once, at 3.35 TB/s.
+//   K4 field_map      add, sub, neg, mul, square, mul_small, reduce128,
+//                     ext_mul and pow7 over a broadcast of up to 4 dims by
+//                     element strides (stride 0 on a broadcast dim), the
+//                     output contiguous; and the Poseidon gate's round,
+//                     mds_full (the MDS layer of x^7 over a (12, M)
+//                     state) and mds_partial (x^7 on row 0 only, rows
+//                     1-11 from a second operand).  Replaces
+//                     goldilocks_jax.py:47-113, :238-248 and the gate's
+//                     mds / x7 (qzk_tpu/plonk/gates.py:489-500).  Bound:
+//                     bytes, each operand's distinct words read once and
+//                     the output written once, at 3.35 TB/s.
+//                     Design: the layouts that carry almost every call
+//                     (one flat dim; (rows, cols) with an operand
+//                     broadcast along either dim) take a path with no
+//                     division an element, 32-bit offsets, two words a
+//                     thread by 16-byte accesses where base and strides
+//                     allow, and a grid of at most 8 blocks an SM walking
+//                     the work; a round is one launch, its 144 small MDS
+//                     products immediates of the code.
 //   K5 field_inverse  inverse and ext_inverse_vec, one element a thread
 //                     (the same 64-step Fermat walk, 0 -> 0), and
 //                     batch_inverse_axis along a short axis, one lane a
@@ -32,21 +46,37 @@
 //                     :153-163 and :258-268.  Bound: bytes; the function's
 //                     n - 1 products (five 32-bit multiply-adds a field
 //                     multiply, at 16.727e12 a second) take less.
-//   K7 field_reduce   sum_mod along any axis, one block an output, in
-//                     shared memory; and prefix_prod_exclusive along axis 0,
-//                     one block a lane (a chunk a thread, then a scan of the
-//                     chunks' products).  Replaces :192-227.  Bound: bytes.
+//   K7 field_reduce   sum_mod and dot_mod (sum_mod of a product by a
+//                     weight broadcast along the other dims, the product
+//                     formed as it is read and never written) along any
+//                     axis; prod_chunks (the product of each run of
+//                     `chunk` words along an axis, the last run ragged);
+//                     and prefix_prod_exclusive along axis 0, one block a
+//                     lane (a chunk a thread, then a scan of the chunks'
+//                     products).  Replaces :192-227 and the permutation
+//                     argument's chunk products (qzk_tpu/plonk/
+//                     vanishing.py:140-161, device_prover.py:415-431).
+//                     Bound: bytes.  Design: a sum whose lanes are
+//                     neighbouring words (along axis 0 of (S, M)) runs a
+//                     tile of 32 lanes a block, so that a warp reads 32
+//                     consecutive words of a row, the first halving in
+//                     registers and the later ones in shared memory laid
+//                     out [row][lane]; a sum along contiguous words runs
+//                     one block a lane.
 //
 // Bit-exact results.  Each output equals the plain version's bit for bit
 // on every 64-bit input, canonical or not.  gl::mul's result is canonical
 // and exact mod p for any inputs, so a product, a power or a prefix
 // product has one value whatever the order of its factors: the kernels
 // take the order that suits a thread, and only the words that the plain
-// version leaves alone stay as they are (b^0 = 1, and a prefix product's
-// output 0 = 1; its output 1 is mul(1, a[0]), canonical, as the plain
-// version's mul(a[0], 1)).  gl::add is not exact on some non-canonical
-// pairs, so sum_mod keeps the plain version's pairing: a[i] + a[i + n/2],
-// with an odd tail added into element 0, level by level.
+// version leaves alone stay as they are (b^0 = 1, a prefix product's
+// output 0 = 1, and a run of one word in prod_chunks; a prefix product's
+// output 1 is mul(1, a[0]), canonical, as the plain version's mul(a[0],
+// 1)).  gl::add is not exact on some non-canonical pairs, so sum_mod and
+// dot_mod keep the plain version's pairing: a[i] + a[i + n/2], with an
+// odd tail added into element 0, level by level.  The MDS layer is the
+// plain version's exact small-integer sums of the words' 32-bit halves
+// and its reduce128, so it gives the plain words on any input.
 //
 // The kernels launch on the caller's stream, allocate nothing (the
 // wrapper, ops/goldilocks_cuda.py, passes outputs and scratch), never
@@ -63,11 +93,16 @@ constexpr int MAX_DIMS = 4;
 constexpr int MAP_THREADS = 256;
 constexpr int LANE_THREADS = 128;
 constexpr long long MAX_BLOCKS = 1 << 16;
-// sum_mod's shared words: the first halving of n <= 2 * SUM_SMEM_WORDS
-// elements fits a block's 48 KB of static-limit shared memory.
+// The fast map path's grid: at most this many blocks of MAP_THREADS an SM.
+constexpr int MAP_BLOCKS_PER_SM = 8;
+// sum_mod's shared words: the first halving of a lane (one block a lane)
+// or of a tile of SUM_TILE lanes (one block a tile) fits a block's 48 KB
+// of static-limit shared memory.
 constexpr long long SUM_SMEM_WORDS = 6144;
+constexpr int SUM_TILE = 32;
+constexpr int WIDTH = 12;  // the Poseidon state
 
-enum MapOp { ADD = 0, SUB, NEG, MUL, SQUARE, MUL_SMALL, REDUCE128, EXT_MUL };
+enum MapOp { ADD = 0, SUB, NEG, MUL, SQUARE, MUL_SMALL, REDUCE128, EXT_MUL, POW7 };
 
 // A row-major index space of nd <= MAX_DIMS dims (nd >= 1), and an
 // operand's element strides over it.
@@ -110,6 +145,21 @@ __device__ __forceinline__ void ext_mul(uint64_t a0, uint64_t a1, uint64_t b0, u
   c1 = gl::add(gl::mul(a0, b1), gl::mul(a1, b0));
 }
 
+// x^7, the S-box: x^2, x^3 = x^2 x, x^7 = (x^2)^2 x^3 as the plain x7,
+// weakly in between; the canonical value of the exact product at the end
+// is the plain version's word.
+__device__ __forceinline__ uint64_t pow7(uint64_t x) {
+  const uint64_t x2 = gl::mul_weak(x, x);
+  const uint64_t x3 = gl::mul_weak(x2, x);
+  return gl::canonical(gl::mul_weak(gl::mul_weak(x2, x2), x3));
+}
+
+// hi 2^64 + lo into [0, p): the plain reduce128.
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
+  const uint32_t r[4] = {(uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32)};
+  return gl::canonical(gl::reduce_weak(r));
+}
+
 // a^(p-2) by the plain inverse's walk over the bits of p - 2; 0 -> 0.
 __device__ __forceinline__ uint64_t inverse(uint64_t a) {
   constexpr uint64_t E = gl::P - 2;
@@ -129,6 +179,23 @@ __device__ __forceinline__ long long grid_step() { return (long long)gridDim.x *
 
 // ---- K4 ---------------------------------------------------------------------
 
+// One word of a map op: x from the first operand, y from the second (the
+// unary ops ignore it), c MUL_SMALL's constant.
+template <int OP>
+__device__ __forceinline__ uint64_t map_one(uint64_t x, uint64_t y, uint64_t c) {
+  switch (OP) {
+    case ADD: return gl::add(x, y);
+    case SUB: return gl::sub(x, y);
+    case NEG: return neg(x);
+    case MUL: return gl::mul(x, y);
+    case SQUARE: return gl::mul(x, x);
+    case MUL_SMALL: return gl::mul(x, c);  // c < 2^32: the plain mul_small's product
+    case POW7: return pow7(x);
+    default: return reduce128(x, y);  // REDUCE128: x the low word, y the high one
+  }
+}
+
+// The general path: any broadcast of up to 4 dims, one element a thread.
 template <int OP>
 __global__ void __launch_bounds__(MAP_THREADS)
     field_map_kernel(const uint64_t* __restrict__ a, Strides sa, long long ca,
@@ -144,23 +211,107 @@ __global__ void __launch_bounds__(MAP_THREADS)
       out[2 * i + 1] = c1;
       continue;
     }
-    const uint64_t x = a[oa];
-    uint64_t y;
-    switch (OP) {
-      case ADD: y = gl::add(x, b[ob]); break;
-      case SUB: y = gl::sub(x, b[ob]); break;
-      case NEG: y = neg(x); break;
-      case MUL: y = gl::mul(x, b[ob]); break;
-      case SQUARE: y = gl::mul(x, x); break;
-      case MUL_SMALL: y = gl::mul(x, c); break;  // c < 2^32: the plain mul_small's product
-      default: {  // REDUCE128: x the low word, b the high one
-        const uint64_t hi = b[ob];
-        const uint32_t r[4] = {(uint32_t)x, (uint32_t)(x >> 32), (uint32_t)hi,
-                               (uint32_t)(hi >> 32)};
-        y = gl::canonical(gl::reduce_weak(r));
+    out[i] = map_one<OP>(a[oa], b[ob], c);
+  }
+}
+
+// The fast path's index space: rows x cols, every offset below 2^31.  An
+// operand's word (row, col) lies at row * r + col * c, with c 0 (broadcast
+// along a row) or 1; the output is contiguous.  A block covers rpb rows
+// of 2^log_tpr threads each; a thread takes VEC words of a row.
+struct Fast2 {
+  unsigned rows, cols;
+  unsigned ra, rb;
+  unsigned ca, cb;
+  int log_tpr;
+};
+
+// VEC consecutive words of an operand's row from col (16 bytes when VEC
+// is 2 and the operand steps along the row; one word repeated when it is
+// broadcast along it).
+template <int VEC>
+__device__ __forceinline__ void load_vec(const uint64_t* __restrict__ p, unsigned c, unsigned col,
+                                         uint64_t v[VEC]) {
+  if (VEC == 2 && c) {
+    const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(p + col);
+    v[0] = w.x;
+    v[VEC - 1] = w.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = p[c ? col + k : 0];
+  }
+}
+
+template <int OP, int VEC>
+__global__ void __launch_bounds__(MAP_THREADS)
+    field_map_fast_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                          uint64_t c, Fast2 f, uint64_t* __restrict__ out) {
+  const unsigned tpr = 1u << f.log_tpr, rpb = blockDim.x >> f.log_tpr;
+  const unsigned col0 = (blockIdx.x * tpr + (threadIdx.x & (tpr - 1))) * VEC;
+  const unsigned col_step = gridDim.x * tpr * VEC;
+  for (unsigned row = blockIdx.y * rpb + (threadIdx.x >> f.log_tpr); row < f.rows;
+       row += gridDim.y * rpb) {
+    const uint64_t* ar = a + row * f.ra;
+    const uint64_t* br = b + row * f.rb;
+    uint64_t* orow = out + row * f.cols;
+    for (unsigned col = col0; col < f.cols; col += col_step) {
+      if (VEC == 2 && col + 1 < f.cols) {
+        uint64_t x[2], y[2];
+        load_vec<2>(ar, f.ca, col, x);
+        load_vec<2>(br, f.cb, col, y);
+        ulonglong2 o;
+        o.x = map_one<OP>(x[0], y[0], c);
+        o.y = map_one<OP>(x[1], y[1], c);
+        *reinterpret_cast<ulonglong2*>(orow + col) = o;
+      } else {  // one word (VEC 1, or the odd tail of a row)
+        orow[col] = map_one<OP>(ar[f.ca ? col : 0], br[f.cb ? col : 0], c);
       }
     }
-    out[i] = y;
+  }
+}
+
+// The MDS matrix M[r][c] = MDS_CIRC[(c - r) mod 12] + (r == c) * MDS_DIAG[r]
+// of ops/poseidon.py; under full unrolling each entry is an immediate.
+__device__ __forceinline__ uint32_t mds_entry(int r, int c) {
+  constexpr uint32_t MDS_CIRC[WIDTH] = {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20};
+  constexpr uint32_t MDS_DIAG[WIDTH] = {8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  return MDS_CIRC[(c - r + WIDTH) % WIDTH] + (r == c ? MDS_DIAG[r] : 0u);
+}
+
+// The Poseidon gate's round for column j of a (12, m) state: s[i] =
+// x[i][j]^7 (FULL) or, for a partial round, s[0] = x0[j]^7 and s[i] =
+// x[i][j] for i >= 1; then out[r][j] = reduce128 of the exact sum of
+// M[r][i] s[i] over the words' 32-bit halves (each half-sum below 2^42),
+// the plain mds's operations.  One column a thread, its 12 loads in
+// flight together, the rows read and written at neighbouring columns by
+// neighbouring threads.  (Twelve threads a column, exchanging the S-box
+// outputs through shared memory, ran slower on an H100.)
+template <bool FULL>
+__global__ void __launch_bounds__(MAP_THREADS)
+    mds_kernel(const uint64_t* __restrict__ x, long long xr, long long xc,
+               const uint64_t* __restrict__ x0, long long x0c, long long m,
+               uint64_t* __restrict__ out) {
+  for (long long j = first_index(); j < m; j += grid_step()) {
+    uint32_t lo[WIDTH], hi[WIDTH];
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) {
+      uint64_t v;
+      if (FULL) v = pow7(x[i * xr + j * xc]);
+      else v = i ? x[i * xr + j * xc] : pow7(x0[j * x0c]);
+      lo[i] = (uint32_t)v;
+      hi[i] = (uint32_t)(v >> 32);
+    }
+#pragma unroll
+    for (int r = 0; r < WIDTH; ++r) {
+      uint64_t sum_lo = 0, sum_hi = 0;
+#pragma unroll
+      for (int i = 0; i < WIDTH; ++i) {
+        sum_lo += (uint64_t)lo[i] * mds_entry(r, i);
+        sum_hi += (uint64_t)hi[i] * mds_entry(r, i);
+      }
+      const uint64_t lo64 = sum_lo + (sum_hi << 32);
+      out[r * m + j] = reduce128(lo64, (sum_hi >> 32) + (lo64 < sum_lo ? 1ull : 0ull));
+    }
   }
 }
 
@@ -238,55 +389,161 @@ __global__ void __launch_bounds__(MAP_THREADS)
 
 // ---- K7 ---------------------------------------------------------------------
 
-// One halving step of the plain sum_mod at index i < h = n / 2, over
-// words x[j * st]: x[i] + x[i + h], plus x[n - 1] at i = 0 when n is odd.
-__device__ __forceinline__ uint64_t halve_at(const uint64_t* x, long long st, long long i,
-                                             long long h, long long n) {
-  uint64_t v = gl::add(x[i * st], x[(i + h) * st]);
-  if (i == 0 && (n & 1)) v = gl::add(v, x[(n - 1) * st]);
+// The lane's term i: x[i * st], or with a weight (dot_mod) its product by
+// w[i * wst].
+template <bool W>
+__device__ __forceinline__ uint64_t term(const uint64_t* x, long long st, const uint64_t* w,
+                                         long long wst, long long i) {
+  return W ? gl::mul(x[i * st], w[i * wst]) : x[i * st];
+}
+
+// One halving step of the plain sum_mod at index i < h = n / 2 over the
+// terms: t[i] + t[i + h], plus t[n - 1] at i = 0 when n is odd.
+template <bool W>
+__device__ __forceinline__ uint64_t halve_at(const uint64_t* x, long long st, const uint64_t* w,
+                                             long long wst, long long i, long long h,
+                                             long long n) {
+  uint64_t v = gl::add(term<W>(x, st, w, wst, i), term<W>(x, st, w, wst, i + h));
+  if (i == 0 && (n & 1)) v = gl::add(v, term<W>(x, st, w, wst, n - 1));
   return v;
 }
 
-// One halving of every lane into out, (lanes, n / 2) row-major: the
-// first steps of a sum too long for one block's shared memory.
+// The first halving of a lane's n terms into s[i * ss] for i = i0, i0 +
+// step, ... below n / 2, four at a time, so that their loads are in
+// flight together.
+template <bool W>
+__device__ __forceinline__ void first_halving(const uint64_t* x, long long st, const uint64_t* w,
+                                              long long wst, long long n, long long i0,
+                                              long long step, uint64_t* s, long long ss) {
+  const long long m = n / 2;
+  long long i = i0;
+  for (; i + 3 * step < m; i += 4 * step) {
+    uint64_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = halve_at<W>(x, st, w, wst, i + u * step, m, n);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[(i + u * step) * ss] = v[u];
+  }
+  for (; i < m; i += step) s[i * ss] = halve_at<W>(x, st, w, wst, i, m, n);
+}
+
+// One halving of every lane into out: the first steps of a sum too long
+// for one block's shared memory.  Row-major (lanes, n / 2) for the
+// one-block-a-lane sum; axis-major (n / 2, lanes) for the tiled one, so
+// that its next step reads neighbouring lanes at neighbouring words.
+template <bool W>
 __global__ void __launch_bounds__(MAP_THREADS)
-    sum_halve_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis, Dims d,
-                     long long lanes, long long n, uint64_t* __restrict__ out) {
+    sum_halve_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis,
+                     const uint64_t* __restrict__ w, Strides sw, long long w_axis, Dims d,
+                     long long lanes, long long n, bool axis_major,
+                     uint64_t* __restrict__ out) {
   const long long h = n / 2;
   for (long long idx = first_index(); idx < lanes * h; idx += grid_step()) {
-    const long long lane = idx / h;
-    long long ia, unused;
-    offsets(d, sa, sa, lane, ia, unused);
-    out[idx] = halve_at(a + ia, a_axis, idx - lane * h, h, n);
+    const long long lane = axis_major ? idx % lanes : idx / h;
+    const long long i = axis_major ? idx / lanes : idx - lane * h;
+    long long ia, iw;
+    offsets(d, sa, sw, lane, ia, iw);
+    out[idx] = halve_at<W>(a + ia, a_axis, w + iw, w_axis, i, h, n);
   }
 }
 
 // One block a lane: the first halving from device memory into shared
 // memory, then every later one in place (a step writes words below h and
 // reads only its own word there), a barrier between steps.
+template <bool W>
 __global__ void __launch_bounds__(MAP_THREADS)
-    sum_block_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis, Dims d,
+    sum_block_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis,
+                     const uint64_t* __restrict__ w, Strides sw, long long w_axis, Dims d,
                      long long lanes, long long n, uint64_t* __restrict__ out) {
   extern __shared__ uint64_t s[];
   const long long t = threadIdx.x, T = blockDim.x;
   for (long long lane = blockIdx.x; lane < lanes; lane += gridDim.x) {
-    long long ia, unused;
-    offsets(d, sa, sa, lane, ia, unused);
-    const uint64_t* x = a + ia;
-    if (n < 2) {  // the plain version: zeros for n = 0, a[..., 0] for n = 1
-      if (t == 0) out[lane] = n ? x[0] : 0;
+    long long ia, iw;
+    offsets(d, sa, sw, lane, ia, iw);
+    const uint64_t *x = a + ia, *wl = w + iw;
+    if (n < 2) {  // the plain version: zeros for n = 0, term 0 for n = 1
+      if (t == 0) out[lane] = n ? term<W>(x, a_axis, wl, w_axis, 0) : 0;
       continue;
     }
     const long long m = n / 2;
-    for (long long i = t; i < m; i += T) s[i] = halve_at(x, a_axis, i, m, n);
+    first_halving<W>(x, a_axis, wl, w_axis, n, t, T, s, 1);
     for (long long len = m; len > 1; len /= 2) {
       __syncthreads();
       const long long h = len / 2;
-      for (long long i = t; i < h; i += T) s[i] = halve_at(s, 1, i, h, len);
+      for (long long i = t; i < h; i += T) s[i] = halve_at<false>(s, 1, s, 0, i, h, len);
     }
     __syncthreads();
     if (t == 0) out[lane] = s[0];
     __syncthreads();  // s[0] is read before the next lane writes it
+  }
+}
+
+// One block a tile of SUM_TILE neighbouring lanes: thread t takes lane
+// t % SUM_TILE of the tile and the rows t / SUM_TILE + k * R (R warps),
+// so that a warp reads SUM_TILE neighbouring lanes of one row.  The first
+// halving goes from device memory into shared memory s[row][lane], every
+// later one in place as in sum_block_kernel.  Lanes past the last are
+// computed on garbage and never written.
+template <bool W>
+__global__ void __launch_bounds__(MAP_THREADS)
+    sum_tile_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis,
+                    const uint64_t* __restrict__ w, Strides sw, long long w_axis, Dims d,
+                    long long lanes, long long n, uint64_t* __restrict__ out) {
+  extern __shared__ uint64_t s[];
+  const int l = threadIdx.x % SUM_TILE;
+  const long long r0 = threadIdx.x / SUM_TILE, R = blockDim.x / SUM_TILE;
+  uint64_t* col = s + l;
+  for (long long t0 = (long long)blockIdx.x * SUM_TILE; t0 < lanes;
+       t0 += (long long)gridDim.x * SUM_TILE) {
+    const long long lane = t0 + l;
+    const bool live = lane < lanes;
+    long long ia = 0, iw = 0;
+    if (live) offsets(d, sa, sw, lane, ia, iw);
+    const uint64_t *x = a + ia, *wl = w + iw;
+    if (n < 2) {
+      if (r0 == 0 && live) out[lane] = n ? term<W>(x, a_axis, wl, w_axis, 0) : 0;
+      continue;
+    }
+    const long long m = n / 2;
+    if (live) first_halving<W>(x, a_axis, wl, w_axis, n, r0, R, col, SUM_TILE);
+    for (long long len = m; len > 1; len /= 2) {
+      __syncthreads();
+      const long long h = len / 2;
+      for (long long i = r0; i < h; i += R)
+        col[i * SUM_TILE] = halve_at<false>(col, SUM_TILE, col, 0, i, h, len);
+    }
+    __syncthreads();
+    if (r0 == 0 && live) out[lane] = col[0];
+    __syncthreads();  // row 0 is read before the next tile writes it
+  }
+}
+
+// prod_chunks: output i of the contiguous (d) index space is the product
+// of run k of the input's words along the axis (dim `axis` of d, k its
+// coordinate there): words k * chunk .. min((k + 1) * chunk, n) - 1 at
+// a_axis apart, from the offset that sa gives i (its axis stride is
+// a_axis * chunk).  A run of one word is that word, as in the plain
+// version; a longer run's product is canonical in any order.
+__global__ void __launch_bounds__(MAP_THREADS)
+    prod_chunks_kernel(const uint64_t* __restrict__ a, Strides sa, Dims d, int axis,
+                       long long a_axis, long long n, long long chunk, long long total,
+                       uint64_t* __restrict__ out) {
+  for (long long i = first_index(); i < total; i += grid_step()) {
+    long long rest = i, oa = 0, k = 0;
+#pragma unroll
+    for (int dim = MAX_DIMS - 1; dim >= 0; --dim) {
+      if (dim >= d.nd) continue;
+      const long long q = dim ? rest / d.n[dim] : 0;
+      const long long r = dim ? rest - q * d.n[dim] : rest;
+      if (dim == axis) k = r;
+      oa += r * sa.s[dim];
+      rest = q;
+    }
+    const long long len = n - k * chunk < chunk ? n - k * chunk : chunk;
+    const uint64_t* x = a + oa;
+    uint64_t acc = x[0];
+    for (long long j = 1; j < len; ++j) acc = gl::mul(acc, x[j * a_axis]);
+    out[i] = acc;
   }
 }
 
@@ -355,12 +612,133 @@ unsigned lane_blocks(long long lanes) {
   return (unsigned)(lanes < 1 ? 1 : lanes > MAX_BLOCKS ? MAX_BLOCKS : lanes);
 }
 
+// The current device's SM count, read once a device.
+int sm_count() {
+  static int cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] <= 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = v > 0 ? v : 132;
+  }
+  return cached[dev];
+}
+
 template <int OP>
 int launch_map(const uint64_t* a, Strides sa, long long ca, const uint64_t* b, Strides sb,
                long long cb, uint64_t c, Dims d, long long n, uint64_t* out,
                cudaStream_t stream) {
   const unsigned blocks = blocks_for(n, MAP_THREADS);
   field_map_kernel<OP><<<blocks, MAP_THREADS, 0, stream>>>(a, sa, ca, b, sb, cb, c, d, n, out);
+  return (int)cudaGetLastError();
+}
+
+// The fast path's layout of a map over nd <= 2 dims, if it has one: one
+// flat dim whose strides are 0 or 1 is a row (vectorisable); a flat dim
+// at other strides is a column of rows; two dims need column strides of
+// 0 or 1.  Every offset must fit 31 bits.  vec: 16-byte accesses hold
+// (the output's and each stepping operand's rows start 16-byte aligned).
+bool fast_layout(int nd, const long long* shape, const long long* sa, const long long* sb,
+                 const void* a, const void* b, const void* out, Fast2& f, bool& vec) {
+  long long rows, cols, ra, rb, ca, cb;
+  if (nd == 1 && (sa[0] == 0 || sa[0] == 1) && (sb[0] == 0 || sb[0] == 1)) {
+    rows = 1, cols = shape[0], ra = rb = 0, ca = sa[0], cb = sb[0];
+  } else if (nd == 1) {
+    rows = shape[0], cols = 1, ra = sa[0], rb = sb[0], ca = cb = 0;
+  } else if (nd == 2 && (sa[1] == 0 || sa[1] == 1) && (sb[1] == 0 || sb[1] == 1)) {
+    rows = shape[0], cols = shape[1], ra = sa[0], rb = sb[0], ca = sa[1], cb = sb[1];
+  } else {
+    return false;
+  }
+  const long long lim = 1LL << 31;
+  if (rows < 1 || cols < 1 || ra < 0 || rb < 0 || rows * cols >= lim ||
+      (rows - 1) * ra + (cols - 1) * ca >= lim || (rows - 1) * rb + (cols - 1) * cb >= lim)
+    return false;
+  f.rows = (unsigned)rows, f.cols = (unsigned)cols;
+  f.ra = (unsigned)ra, f.rb = (unsigned)rb, f.ca = (unsigned)ca, f.cb = (unsigned)cb;
+  auto aligned = [&](const void* p, long long c, long long r) {
+    return !c || ((uintptr_t)p % 16 == 0 && (rows == 1 || r % 2 == 0));
+  };
+  vec = cols >= 2 && (rows == 1 || cols % 2 == 0) && (uintptr_t)out % 16 == 0 &&
+        aligned(a, ca, ra) && aligned(b, cb, rb);
+  const long long units = vec ? (cols + 1) / 2 : cols;  // a thread's share of a row
+  int log_tpr = 0;
+  while ((1LL << log_tpr) < units && (1 << log_tpr) < MAP_THREADS) ++log_tpr;
+  f.log_tpr = log_tpr;
+  return true;
+}
+
+template <int OP>
+int launch_fast(const uint64_t* a, const uint64_t* b, uint64_t c, const Fast2& f, bool vec,
+                uint64_t* out, cudaStream_t stream) {
+  const long long tpr = 1LL << f.log_tpr, rpb = MAP_THREADS / tpr;
+  const long long units = vec ? (f.cols + 1) / 2 : f.cols;
+  const long long cap = (long long)sm_count() * MAP_BLOCKS_PER_SM;
+  long long gx = (units + tpr - 1) / tpr, gy = (f.rows + rpb - 1) / rpb;
+  gx = gx < cap ? gx : cap;
+  const long long ycap = cap / gx > 1 ? cap / gx : 1;
+  gy = gy < ycap ? gy : ycap;
+  gy = gy < 65535 ? gy : 65535;
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  if (vec)
+    field_map_fast_kernel<OP, 2><<<grid, MAP_THREADS, 0, stream>>>(a, b, c, f, out);
+  else
+    field_map_fast_kernel<OP, 1><<<grid, MAP_THREADS, 0, stream>>>(a, b, c, f, out);
+  return (int)cudaGetLastError();
+}
+
+template <int OP>
+int map_op(const uint64_t* a, const long long* sa, long long ca, const uint64_t* b,
+           const long long* sb, long long cb, uint64_t c, int nd, const long long* shape,
+           uint64_t* out, cudaStream_t s) {
+  Dims d;
+  long long n;
+  if (!make_dims(nd, shape, d, n)) return (int)cudaErrorInvalidValue;
+  Fast2 f;
+  bool vec;
+  if (OP != EXT_MUL && fast_layout(nd, shape, sa, sb, a, b, out, f, vec))
+    return launch_fast<OP>(a, b, c, f, vec, out, s);
+  return launch_map<OP>(a, make_strides(nd, sa), ca, b, make_strides(nd, sb), cb, c, d, n, out,
+                        s);
+}
+
+// sum_mod's layout: a tile of SUM_TILE lanes a block where a lane's
+// words are not contiguous and there are lanes to tile, else one block a
+// lane; and the longest lane whose first halving fits the block's shared
+// memory.
+bool sum_tiled(long long lanes, long long a_axis) { return a_axis != 1 && lanes > 1; }
+
+long long sum_block_words(bool tiled) {
+  return tiled ? 2 * SUM_SMEM_WORDS / SUM_TILE : 2 * SUM_SMEM_WORDS;
+}
+
+template <bool W>
+int launch_sum(const uint64_t* a, Strides sa, long long a_axis, const uint64_t* w, Strides sw,
+               long long w_axis, Dims d, long long lanes, long long n, bool tiled,
+               uint64_t* out, cudaStream_t s) {
+  if (tiled) {
+    const long long tiles = (lanes + SUM_TILE - 1) / SUM_TILE;
+    long long threads = SUM_TILE;  // a warp a row, up to MAP_THREADS
+    while (threads < MAP_THREADS && threads / SUM_TILE < n / 2) threads *= 2;
+    sum_tile_kernel<W><<<lane_blocks(tiles), (unsigned)threads, (size_t)(n / 2) * SUM_TILE * 8,
+                         s>>>(a, sa, a_axis, w, sw, w_axis, d, lanes, n, out);
+  } else {
+    int threads = 32;
+    while (threads < MAP_THREADS && threads < n / 2) threads *= 2;
+    sum_block_kernel<W><<<lane_blocks(lanes), threads, (size_t)(n / 2) * 8, s>>>(
+        a, sa, a_axis, w, sw, w_axis, d, lanes, n, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool W>
+int launch_halve(const uint64_t* a, Strides sa, long long a_axis, const uint64_t* w, Strides sw,
+                 long long w_axis, Dims d, long long lanes, long long n, bool tiled,
+                 uint64_t* out, cudaStream_t s) {
+  sum_halve_kernel<W><<<blocks_for(lanes * (n / 2), MAP_THREADS), MAP_THREADS, 0, s>>>(
+      a, sa, a_axis, w, sw, w_axis, d, lanes, n, tiled, out);
   return (int)cudaGetLastError();
 }
 
@@ -375,22 +753,49 @@ extern "C" {
 int qzk_field_map(int op, const uint64_t* a, const long long* sa, long long ca,
                   const uint64_t* b, const long long* sb, long long cb, unsigned long long c,
                   int nd, const long long* shape, uint64_t* out, void* stream) {
-  Dims d;
-  long long n;
-  if (!make_dims(nd, shape, d, n)) return (int)cudaErrorInvalidValue;
-  const Strides A = make_strides(nd, sa), B = make_strides(nd, sb);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
-    case ADD: return launch_map<ADD>(a, A, ca, b, B, cb, c, d, n, out, s);
-    case SUB: return launch_map<SUB>(a, A, ca, b, B, cb, c, d, n, out, s);
-    case NEG: return launch_map<NEG>(a, A, ca, a, A, cb, c, d, n, out, s);
-    case MUL: return launch_map<MUL>(a, A, ca, b, B, cb, c, d, n, out, s);
-    case SQUARE: return launch_map<SQUARE>(a, A, ca, a, A, cb, c, d, n, out, s);
-    case MUL_SMALL: return launch_map<MUL_SMALL>(a, A, ca, a, A, cb, c, d, n, out, s);
-    case REDUCE128: return launch_map<REDUCE128>(a, A, ca, b, B, cb, c, d, n, out, s);
-    case EXT_MUL: return launch_map<EXT_MUL>(a, A, ca, b, B, cb, c, d, n, out, s);
+    case ADD: return map_op<ADD>(a, sa, ca, b, sb, cb, c, nd, shape, out, s);
+    case SUB: return map_op<SUB>(a, sa, ca, b, sb, cb, c, nd, shape, out, s);
+    case NEG: return map_op<NEG>(a, sa, ca, a, sa, cb, c, nd, shape, out, s);
+    case MUL: return map_op<MUL>(a, sa, ca, b, sb, cb, c, nd, shape, out, s);
+    case SQUARE: return map_op<SQUARE>(a, sa, ca, a, sa, cb, c, nd, shape, out, s);
+    case MUL_SMALL: return map_op<MUL_SMALL>(a, sa, ca, a, sa, cb, c, nd, shape, out, s);
+    case REDUCE128: return map_op<REDUCE128>(a, sa, ca, b, sb, cb, c, nd, shape, out, s);
+    case EXT_MUL: return map_op<EXT_MUL>(a, sa, ca, b, sb, cb, c, nd, shape, out, s);
+    case POW7: return map_op<POW7>(a, sa, ca, a, sa, cb, c, nd, shape, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K4's path for qzk_field_map's op over `shape` at strides sa and sb: 0
+// the general one, 1 the fast one a word a thread, 2 the fast one with
+// 16-byte accesses.
+int qzk_map_path(int op, int nd, const long long* shape, const long long* sa,
+                 const long long* sb, const void* a, const void* b, const void* out) {
+  Dims d;
+  long long n;
+  Fast2 f;
+  bool vec;
+  if (op == EXT_MUL || !make_dims(nd, shape, d, n) ||
+      !fast_layout(nd, shape, sa, sb, a, b, out, f, vec))
+    return 0;
+  return vec ? 2 : 1;
+}
+
+// K4, the Poseidon gate's round over a (12, m) state: out (12, m,
+// contiguous) = mds(x^7) with full set, else mds of (x0^7, x[1..11]); x
+// at row stride xr and column stride xc, x0 at x0c.
+int qzk_mds(int full, const uint64_t* x, long long xr, long long xc, const uint64_t* x0,
+            long long x0c, long long m, uint64_t* out, void* stream) {
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = blocks_for(m, MAP_THREADS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (full)
+    mds_kernel<true><<<blocks, MAP_THREADS, 0, s>>>(x, xr, xc, x0, x0c, m, out);
+  else
+    mds_kernel<false><<<blocks, MAP_THREADS, 0, s>>>(x, xr, xc, x0, x0c, m, out);
+  return (int)cudaGetLastError();
 }
 
 // K5, element by element: out = inverse(a), or with ext set, the
@@ -436,51 +841,71 @@ int qzk_field_powers(int ext, const uint64_t* b, long long cb, long long n, uint
   return (int)cudaGetLastError();
 }
 
-// K7, sum_mod: the halvings before the block sum of a lane of n words,
-// and the scratch words they take.  A lane longer than 2 * SUM_SMEM_WORDS
-// is halved into scratch, one launch a halving, alternating between two
-// regions (lanes * (n / 2) words, then lanes * (n / 4)), until the block
-// sum's shared memory holds its first halving.  Returns the launches of
-// one qzk_sum_mod call.
-int qzk_sum_plan(long long lanes, long long n, long long* scratch_words) {
-  long long halvings = 0, words = 0, region = 0;
-  for (long long m = n; m > 2 * SUM_SMEM_WORDS; m /= 2, ++halvings) {
-    region = lanes * (m / 2);
-    if (halvings < 2) words += region;
-  }
+// K7, sum_mod and dot_mod: the halvings before the block sum of `lanes`
+// lanes of n words, a lane's words a_axis apart, and the scratch words
+// they take.  A lane longer than one block's shared memory takes (2 *
+// SUM_SMEM_WORDS words a lane, or 2 * SUM_SMEM_WORDS / SUM_TILE when
+// tiled) is halved into scratch, one launch a halving, alternating
+// between two regions (lanes * (n / 2) words, then lanes * (n / 4)),
+// until it fits.  Returns the launches of one qzk_sum_mod call.
+int qzk_sum_plan(long long lanes, long long n, long long a_axis, long long* scratch_words) {
+  const long long fits = sum_block_words(sum_tiled(lanes, a_axis));
+  long long halvings = 0, words = 0;
+  for (long long m = n; m > fits; m /= 2, ++halvings)
+    if (halvings < 2) words += lanes * (m / 2);
   *scratch_words = words;
   return (int)(halvings + 1);
 }
 
-// K7, sum_mod: out[lane] = the plain sum_mod of the lane's n words, the
-// lanes over `shape` at strides sa, a lane's words at a_axis; scratch:
+// K7, sum_mod (w null) and dot_mod: out[lane] = the plain sum_mod of the
+// lane's n terms, a[lane + i * a_axis], times w[lane' + i * w_axis] for
+// dot_mod; the lanes over `shape` at strides sa (and sw); scratch:
 // qzk_sum_plan's words (unused, and may be null, when it asks for none).
-int qzk_sum_mod(const uint64_t* a, const long long* sa, long long a_axis, int nd,
-                const long long* shape, long long n, uint64_t* scratch, uint64_t* out,
-                void* stream) {
+int qzk_sum_mod(const uint64_t* a, const long long* sa, long long a_axis, const uint64_t* w,
+                const long long* sw, long long w_axis, int nd, const long long* shape,
+                long long n, uint64_t* scratch, uint64_t* out, void* stream) {
   Dims d;
   long long lanes;
   if (!make_dims(nd, shape, d, lanes) || n < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  Strides st = make_strides(nd, sa);
+  const bool tiled = sum_tiled(lanes, a_axis);
+  const long long fits = sum_block_words(tiled);
+  Strides st = make_strides(nd, sa), wt = make_strides(nd, sw);
   uint64_t* region[2] = {scratch, scratch};
-  for (long long m = n, k = 0; m > 2 * SUM_SMEM_WORDS; m /= 2, ++k) {
+  for (long long m = n, k = 0; m > fits; m /= 2, ++k) {
     if (k == 0) region[1] = scratch + lanes * (m / 2);
     uint64_t* half = region[k & 1];
-    sum_halve_kernel<<<blocks_for(lanes * (m / 2), MAP_THREADS), MAP_THREADS, 0, s>>>(
-        a, st, a_axis, d, lanes, m, half);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    // The next step reads the half as (lanes, m / 2), row-major.
-    const long long rows = lanes, row = m / 2;
-    make_dims(1, &rows, d, lanes);
-    st = make_strides(1, &row);
-    a = half, n = row, a_axis = 1;
+    const int err = w != nullptr && k == 0
+                        ? launch_halve<true>(a, st, a_axis, w, wt, w_axis, d, lanes, m, tiled,
+                                             half, s)
+                        : launch_halve<false>(a, st, a_axis, a, st, 0, d, lanes, m, tiled, half,
+                                              s);
+    if (err != cudaSuccess) return err;
+    // The next step reads the half as (lanes, m / 2) row-major, or as
+    // (m / 2, lanes) when tiled, and sums it with no weight.
+    const long long one = 1, row = m / 2, count = lanes;
+    make_dims(1, &count, d, lanes);
+    st = make_strides(1, tiled ? &one : &row);
+    a = half, n = row, a_axis = tiled ? lanes : 1, w = nullptr;
   }
-  int threads = 32;
-  while (threads < MAP_THREADS && threads < n / 2) threads *= 2;
-  sum_block_kernel<<<lane_blocks(lanes), threads, (size_t)(n / 2) * 8, s>>>(a, st, a_axis, d,
-                                                                            lanes, n, out);
+  return w != nullptr
+             ? launch_sum<true>(a, st, a_axis, w, wt, w_axis, d, lanes, n, tiled, out, s)
+             : launch_sum<false>(a, st, a_axis, a, st, 0, d, lanes, n, tiled, out, s);
+}
+
+// K7, prod_chunks: out (contiguous, `shape`: the input's shape with dim
+// `axis` cut to ceil(n / chunk)) = the product of each run of `chunk`
+// words along the axis; sa: the input's strides over `shape`, its axis
+// stride a_axis * chunk.
+int qzk_prod_chunks(const uint64_t* a, const long long* sa, int nd, const long long* shape,
+                    int axis, long long a_axis, long long n, long long chunk, uint64_t* out,
+                    void* stream) {
+  Dims d;
+  long long total;
+  if (!make_dims(nd, shape, d, total) || axis < 0 || axis >= nd || chunk < 1 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  prod_chunks_kernel<<<blocks_for(total, MAP_THREADS), MAP_THREADS, 0, (cudaStream_t)stream>>>(
+      a, make_strides(nd, sa), d, axis, a_axis, n, chunk, total, out);
   return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,12 @@ launches its kernel on PyTorch's current stream, or raises; on a CPU
 tensor it runs the plain version.  There is no switch between the two.
 
   K4 field_map      add, sub, neg, mul, square, mul_small, reduce128,
-                    ext_add, ext_sub, ext_mul
+                    ext_add, ext_sub, ext_mul, pow7; the Poseidon gate's
+                    round mds_full and mds_partial (plain twins in
+                    poseidon_torch.py)
   K5 field_inverse  inverse, ext_inverse_vec, batch_inverse_axis
   K6 field_powers   powers_vec, ext_powers
-  K7 field_reduce   sum_mod, prefix_prod_exclusive
+  K7 field_reduce   sum_mod, dot_mod, prod_chunks, prefix_prod_exclusive
 
 Operands are int64 tensors of uint64 bit patterns on one device, of any
 layout: a wrapper passes the kernel each operand's element strides over
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from . import goldilocks_torch as gt
+from . import poseidon_torch as pt
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -47,12 +50,15 @@ MAX_DIMS = 4
 
 # Each kernel family's ops; a family is a key of LAUNCHES.
 FAMILIES = {
-    "field_map": ("add", "sub", "neg", "mul", "square", "mul_small", "reduce128", "ext_mul"),
+    "field_map": ("add", "sub", "neg", "mul", "square", "mul_small", "reduce128", "ext_mul",
+                  "pow7", "mds_full", "mds_partial"),
     "field_inverse": ("inverse", "ext_inverse_vec", "batch_inverse_axis"),
     "field_powers": ("powers_vec", "ext_powers"),
-    "field_reduce": ("sum_mod", "prefix_prod_exclusive"),
+    "field_reduce": ("sum_mod", "dot_mod", "prod_chunks", "prefix_prod_exclusive"),
 }
 FAMILY_OF = {op: family for family, ops in FAMILIES.items() for op in ops}
+# The ops whose plain twin lives in poseidon_torch, not goldilocks_torch
+_POSEIDON_OPS = ("mds_full", "mds_partial")
 LAUNCHES = dict.fromkeys(FAMILIES, 0)
 FIELD_SHAPES: collections.Counter = collections.Counter()
 _LOCK = threading.Lock()
@@ -75,6 +81,11 @@ def to_u64(x: torch.Tensor):
 
 def scalar(v, device=None) -> torch.Tensor:
     return gt.scalar(v, device)
+
+
+def plain_of(op: str):
+    """The plain twin of an op of FAMILIES (its oracle)."""
+    return getattr(pt if op in _POSEIDON_OPS else gt, op)
 
 
 # -- counts -----------------------------------------------------------------
@@ -147,11 +158,14 @@ def bind(lib):
     pll = ctypes.POINTER(ll)
     sig = {
         "qzk_field_map": [i, vp, pll, ll, vp, pll, ll, ctypes.c_ulonglong, i, pll, vp, vp],
+        "qzk_map_path": [i, i, pll, pll, pll, vp, vp, vp],
+        "qzk_mds": [i, vp, ll, ll, vp, ll, ll, vp, vp],
         "qzk_field_inverse": [i, vp, pll, ll, i, pll, vp, vp],
         "qzk_batch_inverse": [vp, pll, ll, i, pll, pll, ll, ll, vp, vp],
         "qzk_field_powers": [i, vp, ll, ll, vp, vp],
-        "qzk_sum_plan": [ll, ll, pll],
-        "qzk_sum_mod": [vp, pll, ll, i, pll, ll, vp, vp, vp],
+        "qzk_sum_plan": [ll, ll, ll, pll],
+        "qzk_sum_mod": [vp, pll, ll, vp, pll, ll, i, pll, ll, vp, vp, vp],
+        "qzk_prod_chunks": [vp, pll, i, pll, i, ll, ll, ll, vp, vp],
         "qzk_prefix_threads": [ll],
         "qzk_prefix_prod": [vp, pll, ll, i, pll, pll, ll, ll, vp, vp],
     }
@@ -307,6 +321,15 @@ def launch_map(lib, plan: MapPlan, xs, out, stream) -> int:
     return 1
 
 
+def map_path(lib, plan: MapPlan, xs, out) -> int:
+    """The K4 path that `plan` takes (field.cu's qzk_map_path): 0 the
+    general one, 1 the fast one, 2 the fast one with 16-byte accesses."""
+    b = 1 if len(xs) > 1 else 0
+    return lib.qzk_map_path(_MAP_OPS[plan.key[0]], len(plan.dims), _arr(plan.dims),
+                            _arr(plan.strides[0]), _arr(plan.strides[b]), xs[0].data_ptr(),
+                            xs[b].data_ptr(), out.data_ptr())
+
+
 def _map(op: str, plain, xs, c=None):
     plan = map_plan(op, *xs, c=c)
     if xs[0].device.type == "cpu":
@@ -358,6 +381,63 @@ def ext_mul(a, b):
     return _map("ext_mul", lambda: gt.ext_mul(a, b), (a, b))
 
 
+def pow7(a):
+    """a^7, the Poseidon S-box, element by element."""
+    return _map("pow7", lambda: gt.pow7(a), (a,))
+
+
+class MdsPlan(NamedTuple):
+    """A launch of the Poseidon gate's round (K4's qzk_mds)."""
+
+    key: tuple  # (op, (12, m), strides of each operand, None)
+    out_shape: tuple
+
+
+def mds_plan(op: str, *xs) -> MdsPlan:
+    """mds_full on (x,) or mds_partial on (x0, x): x a (12, m) state at
+    any strides, x0 an (m,) row."""
+    check_operands(*xs)
+    x = xs[-1]
+    if x.dim() != 2 or x.shape[0] != 12 or x.shape[1] < 1:
+        raise ValueError(f"{op}: expected a (12, m) state, got {tuple(x.shape)}")
+    if op == "mds_partial" and tuple(xs[0].shape) != (x.shape[1],):
+        raise ValueError(f"mds_partial: expected an ({x.shape[1]},) row 0, got "
+                         f"{tuple(xs[0].shape)}")
+    return MdsPlan((op, tuple(x.shape), tuple(tuple(t.stride()) for t in xs), None),
+                   tuple(x.shape))
+
+
+def launch_mds(lib, plan: MdsPlan, xs, out, stream) -> int:
+    """K4's round through `lib` for `plan`."""
+    x, x0 = xs[-1], xs[0]
+    full = plan.key[0] == "mds_full"
+    _check(lib.qzk_mds(int(full), x.data_ptr(), x.stride(0), x.stride(1), x0.data_ptr(),
+                       0 if full else x0.stride(0), x.shape[1], out.data_ptr(), stream),
+           "qzk_mds")
+    return 1
+
+
+def _mds(op: str, plain, xs):
+    plan = mds_plan(op, *xs)
+    if xs[0].device.type == "cpu":
+        return plain()
+    return _launch(plan.key, plan.out_shape, xs[0].device,
+                   lambda lib, out, s: launch_mds(lib, plan, xs, out, s))
+
+
+def mds_full(x):
+    """The Poseidon gate's full round: the MDS layer along axis 0 of
+    x^7, x a (12, m) state."""
+    return _mds("mds_full", lambda: pt.mds_full(x), (x,))
+
+
+def mds_partial(x0, x):
+    """The Poseidon gate's partial round: the MDS layer along axis 0
+    of the state whose row 0 is x0^7 and rows 1-11 are x's (x's row 0
+    is not read)."""
+    return _mds("mds_partial", lambda: pt.mds_partial(x0, x), (x0, x))
+
+
 # -- K5 -------------------------------------------------------------------------
 
 
@@ -389,28 +469,29 @@ def ext_inverse_vec(a):
 
 class LanePlan(NamedTuple):
     """A launch along one axis (K5's batch inversion, K7): `dims` the
-    lanes' index space, `strides` the input's and the output's over it,
-    `axis` their strides along a lane, `n` a lane's length."""
+    lanes' index space, `strides` the input's, the output's (and
+    dot_mod's weight's) over it, `axis` their strides along a lane, `n`
+    a lane's length."""
 
     key: tuple
     out_shape: tuple
     dims: list
-    strides: list  # [input, output]
-    axis: tuple  # (input, output)
+    strides: list  # [input, output] (+ [weight] for dot_mod)
+    axis: tuple  # (input, output) (+ (weight,) for dot_mod)
     n: int
 
 
-def lane_plan(op: str, a, axis: int) -> LanePlan:
-    """The launch of `op` (sum_mod, batch_inverse_axis or
-    prefix_prod_exclusive) along `axis` of `a`: one lane for each index
-    of the other dims."""
-    check_operands(a)
+def lane_plan(op: str, a, axis: int, w=None) -> LanePlan:
+    """The launch of `op` (sum_mod, dot_mod with weight w,
+    batch_inverse_axis or prefix_prod_exclusive) along `axis` of `a`:
+    one lane for each index of the other dims."""
+    check_operands(a, *([] if w is None else [w]))
     if not 1 <= a.dim() <= MAX_DIMS:
         raise ValueError(f"{op}: expected 1 to {MAX_DIMS} dims, got {tuple(a.shape)}")
     axis = axis % a.dim()
     rest = [k for k in range(a.dim()) if k != axis]
     lane_shape = tuple(a.shape[k] for k in rest)
-    if op == "sum_mod":
+    if op in ("sum_mod", "dot_mod"):
         out_shape = lane_shape
         o_strides, o_axis = contiguous_strides(lane_shape), 0
     else:
@@ -418,9 +499,18 @@ def lane_plan(op: str, a, axis: int) -> LanePlan:
         full = contiguous_strides(out_shape)
         o_strides, o_axis = tuple(full[k] for k in rest), full[axis]
     a_strides = tuple(a.stride(k) for k in rest)
-    dims, strides = coalesce(lane_shape, [a_strides, o_strides])
-    return LanePlan((op, tuple(a.shape), (tuple(a.stride()),), axis), out_shape, dims,
-                    strides, (a.stride(axis), o_axis), a.shape[axis])
+    key_strides, operands, axes = (tuple(a.stride()),), [a_strides, o_strides], ()
+    if op == "dot_mod":
+        shape, (_, ws) = broadcast(a, w)
+        if shape != tuple(a.shape):
+            raise ValueError(f"dot_mod: a weight of {tuple(w.shape)} does not broadcast to "
+                             f"{tuple(a.shape)}")
+        key_strides += (ws,)
+        operands.append(tuple(ws[k] for k in rest))
+        axes = (ws[axis],)
+    dims, strides = coalesce(lane_shape, operands)
+    return LanePlan((op, tuple(a.shape), key_strides, axis), out_shape, dims,
+                    strides, (a.stride(axis), o_axis) + axes, a.shape[axis])
 
 
 def launch_batch_inverse(lib, plan: LanePlan, a, out, stream) -> int:
@@ -493,18 +583,26 @@ def ext_powers(z, n: int):
 # -- K7 -------------------------------------------------------------------------
 
 
-def launch_sum_mod(lib, plan: LanePlan, a, out, stream) -> int:
-    """The sum, with the halvings into scratch that field.cu's
-    qzk_sum_plan asks for when a lane is longer than one block's shared
-    memory holds."""
+def launch_sum_mod(lib, plan: LanePlan, a, out, stream, w=None) -> int:
+    """The sum (or with a weight w, dot_mod's), with the halvings into
+    scratch that field.cu's qzk_sum_plan asks for when a lane is longer
+    than one block's shared memory holds."""
     words = ctypes.c_longlong(0)
-    launches = lib.qzk_sum_plan(out.numel(), plan.n, ctypes.byref(words))
+    launches = lib.qzk_sum_plan(out.numel(), plan.n, plan.axis[0], ctypes.byref(words))
     # Alive until the launches are queued; the stream orders any reuse.
     scratch = torch.empty(words.value, dtype=torch.int64, device=a.device) if words.value else None
-    _check(lib.qzk_sum_mod(a.data_ptr(), _arr(plan.strides[0]), plan.axis[0], len(plan.dims),
-                           _arr(plan.dims), plan.n, None if scratch is None else scratch.data_ptr(),
+    weighted = w is not None
+    _check(lib.qzk_sum_mod(a.data_ptr(), _arr(plan.strides[0]), plan.axis[0],
+                           w.data_ptr() if weighted else None,
+                           _arr(plan.strides[2] if weighted else ()),
+                           plan.axis[2] if weighted else 0, len(plan.dims), _arr(plan.dims),
+                           plan.n, None if scratch is None else scratch.data_ptr(),
                            out.data_ptr(), stream), "qzk_sum_mod")
     return launches
+
+
+def launch_dot_mod(lib, plan: LanePlan, a, w, out, stream) -> int:
+    return launch_sum_mod(lib, plan, a, out, stream, w)
 
 
 def sum_mod(a, axis: int = -1):
@@ -514,6 +612,61 @@ def sum_mod(a, axis: int = -1):
         return gt.sum_mod(a, axis)
     return _launch(plan.key, plan.out_shape, a.device,
                    lambda lib, out, s: launch_sum_mod(lib, plan, a, out, s))
+
+
+def dot_mod(a, w, axis: int):
+    """sum_mod(mul(a, w), axis) for w broadcast to a's shape, the
+    products formed as they are read."""
+    plan = lane_plan("dot_mod", a, axis, w)
+    if a.device.type == "cpu":
+        return gt.dot_mod(a, w, axis)
+    return _launch(plan.key, plan.out_shape, a.device,
+                   lambda lib, out, s: launch_dot_mod(lib, plan, a, w, out, s))
+
+
+class ChunkPlan(NamedTuple):
+    """A prod_chunks launch: the output's shape (the input's, the axis
+    cut to its runs) and the input's strides over it (the axis stride
+    times the run length)."""
+
+    key: tuple
+    out_shape: tuple
+    strides: tuple
+    axis: int
+    a_axis: int
+    n: int
+    chunk: int
+
+
+def chunk_plan(a, axis: int, chunk: int) -> ChunkPlan:
+    check_operands(a)
+    if not 1 <= a.dim() <= MAX_DIMS:
+        raise ValueError(f"prod_chunks: expected 1 to {MAX_DIMS} dims, got {tuple(a.shape)}")
+    if chunk < 1:
+        raise ValueError(f"prod_chunks: chunk = {chunk}")
+    axis = axis % a.dim()
+    n = a.shape[axis]
+    out_shape = tuple(-(-n // chunk) if k == axis else a.shape[k] for k in range(a.dim()))
+    strides = tuple(a.stride(k) * (chunk if k == axis else 1) for k in range(a.dim()))
+    return ChunkPlan(("prod_chunks", tuple(a.shape), (tuple(a.stride()),), (axis, chunk)),
+                     out_shape, strides, axis, a.stride(axis), n, chunk)
+
+
+def launch_prod_chunks(lib, plan: ChunkPlan, a, out, stream) -> int:
+    _check(lib.qzk_prod_chunks(a.data_ptr(), _arr(plan.strides), len(plan.out_shape),
+                               _arr(plan.out_shape), plan.axis, plan.a_axis, plan.n, plan.chunk,
+                               out.data_ptr(), stream), "qzk_prod_chunks")
+    return 1
+
+
+def prod_chunks(a, axis: int, chunk: int):
+    """The product of each run of `chunk` words along `axis` (the last
+    run ragged; a run of one word is that word)."""
+    plan = chunk_plan(a, axis, chunk)
+    if a.device.type == "cpu":
+        return gt.prod_chunks(a, axis, chunk)
+    return _launch(plan.key, plan.out_shape, a.device,
+                   lambda lib, out, s: launch_prod_chunks(lib, plan, a, out, s))
 
 
 def launch_prefix_prod(lib, plan: LanePlan, a, out, stream) -> int:
@@ -552,6 +705,12 @@ def call_of(key: tuple, make):
         return make(words).as_strided(shp, st)
 
     fn = globals()[op]
+    if op == "dot_mod":
+        return fn, (view(strides[0], shape), view(strides[1], shape), extra)
+    if op == "prod_chunks":
+        return fn, (view(strides[0], shape), *extra)
+    if op == "mds_partial":
+        return fn, (view(strides[0], shape[1:]), view(strides[1], shape))
     if op == "powers_vec":
         return fn, (make(1).reshape(()), shape[0])
     if op == "ext_powers":

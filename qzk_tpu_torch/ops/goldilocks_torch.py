@@ -135,6 +135,13 @@ def mul_small(a, c: int):
     return reduce128(s_lo, s_hi)
 
 
+def pow7(x):
+    """x^7, the Poseidon S-box: the Poseidon gate's x7."""
+    x2 = mul(x, x)
+    x3 = mul(x2, x)
+    return mul(mul(x2, x2), x3)
+
+
 def exp_const(a, e: int):
     """a^e for a Python-int exponent (square and multiply)."""
     assert e >= 0
@@ -202,6 +209,27 @@ def sum_mod(a, axis: int = -1):
         a = s
         n = half
     return a[..., 0]
+
+
+def dot_mod(a, w, axis: int):
+    """sum_mod of a times w (w broadcast to a's shape) along an axis."""
+    return sum_mod(mul(a, w), axis)
+
+
+def prod_chunks(a, axis: int, chunk: int):
+    """The product of each run of `chunk` words along an axis, the last
+    run ragged, sequentially (a run of one word is that word)."""
+    a = torch.movedim(a, axis, 0)
+    n = a.shape[0]
+    if n == 0:
+        return torch.movedim(torch.zeros_like(a), 0, axis)
+    out = []
+    for lo in range(0, n, chunk):
+        acc = a[lo]
+        for j in range(lo + 1, min(lo + chunk, n)):
+            acc = mul(acc, a[j])
+        out.append(acc)
+    return torch.movedim(torch.stack(out), 0, axis)
 
 
 def prefix_prod_exclusive(a):

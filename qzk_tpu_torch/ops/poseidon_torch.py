@@ -29,13 +29,6 @@ def _tables(device):
     )
 
 
-def _sbox(x):
-    x2 = gt.square(x)
-    x3 = gt.mul(x2, x)
-    x4 = gt.square(x2)
-    return gt.mul(x4, x3)
-
-
 def mds_layer(state, mds):
     """(..., 12) -> (..., 12): out[r] = sum_c M[r, c] * state[c]."""
     s = state[..., None, :]
@@ -47,18 +40,35 @@ def mds_layer(state, mds):
     return gt.reduce128(lo64, hi64)
 
 
+def _mds_rows(st):
+    """mds_layer along axis 0 of a (12, m) state."""
+    return mds_layer(st.T, _tables(st.device)[1]).T
+
+
+def mds_full(x):
+    """The Poseidon gate's full round, x a (12, m) state: the MDS layer
+    along axis 0 of x^7."""
+    return _mds_rows(gt.pow7(x))
+
+
+def mds_partial(x0, x):
+    """The Poseidon gate's partial round: the MDS layer along axis 0 of
+    the state whose row 0 is x0^7 and rows 1-11 are x's."""
+    return _mds_rows(torch.cat([gt.pow7(x0)[None], x[1:]]))
+
+
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation on (..., 12) int64 states."""
     rc, mds = _tables(state.device)
     p0, p1 = HALF_FULL, HALF_FULL + N_PARTIAL_ROUNDS
     for r in range(p0):
-        state = mds_layer(_sbox(gt.add(state, rc[r])), mds)
+        state = mds_layer(gt.pow7(gt.add(state, rc[r])), mds)
     for r in range(p0, p1):
         state = gt.add(state, rc[r])
-        state = torch.cat([_sbox(state[..., :1]), state[..., 1:]], dim=-1)
+        state = torch.cat([gt.pow7(state[..., :1]), state[..., 1:]], dim=-1)
         state = mds_layer(state, mds)
     for r in range(p1, p1 + HALF_FULL):
-        state = mds_layer(_sbox(gt.add(state, rc[r])), mds)
+        state = mds_layer(gt.pow7(gt.add(state, rc[r])), mds)
     return state
 
 

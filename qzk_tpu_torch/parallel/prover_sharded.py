@@ -301,8 +301,8 @@ class ShardedProverContext:
         N = self.common.degree
 
         def eval_rows(coeffs, pows):
-            c0 = gt.sum_mod(gt.mul(coeffs, pows[None, :, 0]), axis=1)
-            c1 = gt.sum_mod(gt.mul(coeffs, pows[None, :, 1]), axis=1)
+            c0 = gt.dot_mod(coeffs, pows[None, :, 0], axis=1)
+            c1 = gt.dot_mod(coeffs, pows[None, :, 1], axis=1)
             return torch.stack([c0, c1], dim=-1)
 
         out = [[] for _ in range(5)]
@@ -322,8 +322,8 @@ class ShardedProverContext:
         """-> the FRI input polynomial's values (M/d, 2) a shard."""
 
         def one(rows, coset_l, apows, claim, z):
-            comb0 = gt.sum_mod(gt.mul(rows, apows[None, :, 0]), axis=1)
-            comb1 = gt.sum_mod(gt.mul(rows, apows[None, :, 1]), axis=1)
+            comb0 = gt.dot_mod(rows, apows[None, :, 0], axis=1)
+            comb1 = gt.dot_mod(rows, apows[None, :, 1], axis=1)
             comb = torch.stack([comb0, comb1], dim=-1)
             num = gt.ext_sub(comb, claim.expand(comb.shape))
             den = torch.stack([gt.sub(coset_l, z[0]), gt.neg(z[1]).expand(coset_l.shape[0])],

@@ -194,26 +194,11 @@ class DeviceChallenger:
 
 def chunk_products(ratios, common) -> list:
     """(n, num_routed) permutation ratios -> the product of each chunk
-    of routed wires, [(n,)] a chunk; a halving tree when the chunks are
-    whole (associativity is exact in the field, so the values equal the
-    sequential order's), else sequential."""
-    chunk, n_chunks = common.chunk_size, common.num_chunks
-    num_routed = common.config.num_routed_wires
-    if num_routed == n_chunks * chunk:
-        t = ratios.reshape(-1, n_chunks, chunk)
-        while t.shape[-1] > 1:
-            if t.shape[-1] % 2:
-                t = torch.cat([t, torch.ones_like(t[..., :1])], dim=-1)
-            t = gt.mul(t[..., 0::2], t[..., 1::2])
-        return [t[:, k, 0] for k in range(n_chunks)]
-    chunk_prods = []  # a ragged tail chunk
-    for k in range(n_chunks):
-        lo, hi = k * chunk, min((k + 1) * chunk, num_routed)
-        acc = ratios[:, lo]
-        for j in range(lo + 1, hi):
-            acc = gt.mul(acc, ratios[:, j])
-        chunk_prods.append(acc)
-    return chunk_prods
+    of routed wires, [(n,)] a chunk: one launch, the last chunk ragged
+    (associativity is exact in the field, so the values equal the
+    sequential order's)."""
+    t = gt.prod_chunks(ratios, 1, common.chunk_size)
+    return [t[:, k] for k in range(common.num_chunks)]
 
 
 def _ext_reduce(claims, apows):
@@ -510,8 +495,8 @@ class DeviceProverContext:
         pows_r = gt.ext_powers(zeta_right, N)
 
         def eval_polys_ext(coeffs, p):
-            c0 = gt.sum_mod(gt.mul(coeffs, p[None, :, 0]), axis=1)
-            c1 = gt.sum_mod(gt.mul(coeffs, p[None, :, 1]), axis=1)
+            c0 = gt.dot_mod(coeffs, p[None, :, 0], axis=1)
+            c1 = gt.dot_mod(coeffs, p[None, :, 1], axis=1)
             return torch.stack([c0, c1], dim=-1)
 
         return (
@@ -524,8 +509,8 @@ class DeviceProverContext:
 
     def _fri_input_one(self, lde_rows, apows, reduced_claim, z):
         """alpha-combined (F(x) - F(z)) / (x - z) over the coset."""
-        comb0 = gt.sum_mod(gt.mul(lde_rows, apows[:, 0:1]), axis=0)
-        comb1 = gt.sum_mod(gt.mul(lde_rows, apows[:, 1:2]), axis=0)
+        comb0 = gt.dot_mod(lde_rows, apows[:, 0:1], axis=0)
+        comb1 = gt.dot_mod(lde_rows, apows[:, 1:2], axis=0)
         comb = torch.stack([comb0, comb1], dim=-1)
         num = gt.ext_sub(comb, reduced_claim.expand(comb.shape))
         den = torch.stack(

@@ -478,8 +478,9 @@ class PoseidonGate(Gate):
     def eval_constraints_torch(self, wires_mat, const_mat, pi_hash):
         """Stacked device evaluation, (123, M) rows in eval_constraints
         order: the 30-round constraint walk vectorised over the coset,
-        with the (12, M) state as one tensor and the MDS layer as one
-        exact small-int accumulation."""
+        with the (12, M) state as one tensor.  A round is three field
+        launches: its constants' add, its constraint rows, and its S-box
+        and MDS layer as one (goldilocks_cuda.mds_full, mds_partial)."""
         import torch
 
         from ..ops import goldilocks_cuda as gt
@@ -489,23 +490,6 @@ class PoseidonGate(Gate):
         rc_all = device_constant(  # (30, 12, 1)
             "poseidon_gate_rc", dev, lambda: gt.from_u64(pos._RC, dev)[:, :, None]
         )
-        mds_m = device_constant(  # (12, 12, 1)
-            "poseidon_gate_mds", dev,
-            lambda: torch.as_tensor(pos.MDS_MATRIX.astype(np.int64), device=dev)[:, :, None],
-        )
-        M32 = 0xFFFFFFFF
-
-        def mds(st):  # (12, M) -> (12, M)
-            lo = (mds_m * (st & M32)[None]).sum(1)
-            hi = (mds_m * gt.shr(st, 32)[None]).sum(1)
-            lo64 = lo + (hi << 32)
-            carry = gt.lt(lo64, lo).to(torch.int64)
-            return gt.reduce128(lo64, gt.shr(hi, 32) + carry)
-
-        def x7(x):
-            x2 = gt.mul(x, x)
-            x3 = gt.mul(x2, x)
-            return gt.mul(gt.mul(x2, x2), x3)
 
         rows = []
         swap = wires_mat[self.WIRE_SWAP]
@@ -517,13 +501,13 @@ class PoseidonGate(Gate):
         state = torch.cat(
             [gt.add(ins[:4], deltas), gt.sub(ins[4:8], deltas), ins[8:W]]
         )
-        state = mds(x7(gt.add(state, rc_all[0])))
+        state = gt.mds_full(gt.add(state, rc_all[0]))
 
         def full_rounds(state, rounds, wire):
             for k, r in enumerate(rounds):
                 stored = wires_mat[wire(k, 0) : wire(k, 0) + W]  # wire(k, i) = wire(k, 0) + i
                 rows.append(gt.sub(stored, gt.add(state, rc_all[r])))
-                state = mds(x7(stored))
+                state = gt.mds_full(stored)
             return state
 
         # full rounds 1..3: stored sbox inputs
@@ -535,7 +519,7 @@ class PoseidonGate(Gate):
             stored = wires_mat[self.wire_partial(pr)]
             pre = gt.add(state, rc_all[4 + pr])
             rows.append(gt.sub(stored, pre[0])[None])
-            state = mds(torch.cat([x7(stored)[None], pre[1:]]))
+            state = gt.mds_partial(stored, pre)
         # second-half full rounds: all stored
         p1 = 4 + pos.N_PARTIAL_ROUNDS
         state = full_rounds(state, range(p1, p1 + 4), self.wire_full1)

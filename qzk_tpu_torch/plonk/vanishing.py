@@ -135,24 +135,11 @@ def eval_vanishing_torch(
     kx = gt.mul(k_is[:, None], x[None, :])  # (80, M)
 
     def chunk_products(vals):
-        """(80, M) -> per-chunk products [(M,)] via a log2 halving tree
-        (exact associativity: identical values to the sequential order)."""
-        if num_routed == common.num_chunks * chunk:
-            t = vals.reshape(common.num_chunks, chunk, -1)
-            while t.shape[1] > 1:
-                if t.shape[1] % 2:
-                    t = torch.cat([t, torch.ones_like(t[:, :1])], dim=1)
-                t = gt.mul(t[:, 0::2], t[:, 1::2])
-            return [t[k, 0] for k in range(common.num_chunks)]
-        out = []
-        for k in range(common.num_chunks):
-            lo = k * chunk
-            hi = min(lo + chunk, num_routed)
-            acc = vals[lo]
-            for j in range(lo + 1, hi):
-                acc = gt.mul(acc, vals[j])
-            out.append(acc)
-        return out
+        """(80, M) -> per-chunk products [(M,)]: one launch, the last
+        chunk ragged (exact associativity: identical values to the
+        sequential order)."""
+        t = gt.prod_chunks(vals, 0, chunk)
+        return [t[k] for k in range(common.num_chunks)]
 
     out = []
     for c in range(cfg.num_challenges):
@@ -176,5 +163,5 @@ def eval_vanishing_torch(
             torch.cat([gate_terms, tail]) if gate_terms is not None else tail
         )
         apows = gt.powers_vec(alphas[c], terms.shape[0])
-        out.append(gt.sum_mod(gt.mul(terms, apows[:, None]), axis=0))
+        out.append(gt.dot_mod(terms, apows[:, None], axis=0))
     return out

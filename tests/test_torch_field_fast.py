@@ -13,13 +13,18 @@ computes (broadcast, element strides, coalesced dims, lanes) is checked
 with the kernel it feeds.
 
 Each result is held bit for bit to the plain version
-(goldilocks_torch) and to the JAX package's goldilocks_jax, on random
-canonical values with the EDGES values planted, and on any 64-bit words
-where the op takes them: the call sites' broadcast and stride patterns,
-a zero lane in batch_inverse_axis, inverse(0) and ext_inverse_vec of
-(0, 0), sum_mod at n = 0, 1, 2, odd n, along either axis and past one
-block's shared memory, and prefix_prod_exclusive at n = 1, 2 and odd n.
-Needs g++ only.
+(goldilocks_torch, poseidon_torch for the Poseidon gate's round) and to
+the JAX package's goldilocks_jax (poseidon_jax's S-box and MDS layer for
+the round), on random canonical values with the EDGES values planted,
+and on any 64-bit words where the op takes them: the call sites'
+broadcast and stride patterns, each through the K4 path it should take
+(the general one, the fast one, the fast one with 16-byte accesses and
+an odd tail), pow7 and the round, a zero lane in batch_inverse_axis,
+inverse(0) and ext_inverse_vec of (0, 0), sum_mod and dot_mod at n = 0,
+1, 2, odd n, along either axis (tiled along axis 0 over a lane count
+that is no multiple of the tile) and past one block's shared memory,
+prod_chunks with a ragged run and runs of one word, and
+prefix_prod_exclusive at n = 1, 2 and odd n.  Needs g++ only.
 """
 
 import ctypes
@@ -34,8 +39,10 @@ import pytest
 import torch
 
 from qzk_tpu.ops import goldilocks_jax as gj
+from qzk_tpu.ops import poseidon_jax as pj
 from qzk_tpu_torch.ops import goldilocks_cuda as gc
 from qzk_tpu_torch.ops import goldilocks_torch as gt
+from qzk_tpu_torch.ops import poseidon_torch as pt
 from test_torch_ntt_fast import HOST_RUNTIME
 from test_torch_poseidon_fast import EDGES, _translate
 
@@ -57,9 +64,9 @@ def host_field(tmp_path_factory):
         src = f.read()
     src, n_smem = re.subn(r"extern __shared__ (\w+) (\w+)\[\];",
                           r"\1* \2 = reinterpret_cast<\1*>(hostsim::smem.data());", src)
-    src, n_launch = re.subn(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);",
+    src, n_launch = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                             r"hostsim::launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert "<<<" not in src and "__shared__" not in src and (n_smem, n_launch) == (2, 9)
+    assert "<<<" not in src and "__shared__" not in src and (n_smem, n_launch) == (3, 15)
     (d / "field_host.cpp").write_text(_translate(src))
     so = d / "field_host.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(d),
@@ -126,12 +133,31 @@ def _map_cases():
     def any64(rng):
         return _words(rng, (4, 25), False), _words(rng, (25,), False)
 
+    def flat_odd(rng):  # contiguous, an odd length: the 16-byte path's tail
+        return _words(rng, (33,), False), _words(rng, (33,), False)
+
+    def row_broadcast(rng):  # sel[None, :] against (rows, M) constraints
+        return _words(rng, (10,))[None, :], _words(rng, (6, 10))
+
+    def column_broadcast(rng):  # a (12, M) state plus a (12, 1) column of constants
+        return _words(rng, (12, 10)), _words(rng, (12, 1))
+
+    def flat_strided(rng):  # a column of an (N, 80) block
+        return _words(rng, (9, 10))[:, 3], _words(rng, (9,))
+
     return {"beta_by_block": beta_by_block, "fold": fold, "halves": halves,
             "openings": openings, "transposed": transposed, "four_dims": four_dims,
-            "coset_minus_z": coset_minus_z, "any64": any64}
+            "coset_minus_z": coset_minus_z, "any64": any64, "flat_odd": flat_odd,
+            "row_broadcast": row_broadcast, "column_broadcast": column_broadcast,
+            "flat_strided": flat_strided}
 
 
 MAP_CASES = _map_cases()
+# The K4 path of each case (field.cu's qzk_map_path): 0 the general one,
+# 1 the fast one a word a thread, 2 the fast one with 16-byte accesses.
+MAP_PATHS = {"beta_by_block": 2, "fold": 0, "halves": 1, "openings": 0, "transposed": 0,
+             "four_dims": 0, "coset_minus_z": 2, "any64": 1, "flat_odd": 2,
+             "row_broadcast": 2, "column_broadcast": 2, "flat_strided": 1}
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul", "reduce128"])
@@ -140,12 +166,17 @@ def test_host_field_map_binary(host_field, rng, op, case):
     a, b = MAP_CASES[case](rng)
     plan = gc.map_plan(op, a, b)
     got = _run(host_field, gc.launch_map, plan, (a, b))
+    assert gc.map_path(host_field, plan, (a, b), got) == MAP_PATHS[case]
     want = getattr(gt, op)(a, b)
     _same(got, gt.to_u64(want))
     _same(got, getattr(gj, op)(_j(a), _j(b)))
 
 
-@pytest.mark.parametrize("op", ["neg", "square", "mul_small"])
+def _pow7_jax(x):  # the JAX gate's x7 (the same multiplies as poseidon_jax's S-box)
+    return pj._sbox(x)
+
+
+@pytest.mark.parametrize("op", ["neg", "square", "mul_small", "pow7"])
 @pytest.mark.parametrize("canonical", [True, False], ids=["canonical", "any64"])
 def test_host_field_map_unary(host_field, rng, op, canonical):
     a = _words(rng, (40, 6), canonical).T  # strided
@@ -153,7 +184,31 @@ def test_host_field_map_unary(host_field, rng, op, canonical):
     plan = gc.map_plan(op, a, c=extra[0] if extra else None)
     got = _run(host_field, gc.launch_map, plan, (a,))
     _same(got, gt.to_u64(getattr(gt, op)(a, *extra)))
-    _same(got, getattr(gj, op)(_j(a), *extra))
+    _same(got, _pow7_jax(_j(a)) if op == "pow7" else getattr(gj, op)(_j(a), *extra))
+
+
+@pytest.mark.parametrize("op", ["mds_full", "mds_partial"])
+@pytest.mark.parametrize("layout", ["wire_rows", "transposed"])
+@pytest.mark.parametrize("canonical", [True, False], ids=["canonical", "any64"])
+def test_host_field_mds(host_field, rng, op, layout, canonical):
+    """The Poseidon gate's round against poseidon_torch and the JAX
+    gate's x7 and MDS layer (poseidon_jax's, on the transpose)."""
+    m = 37
+    if layout == "wire_rows":  # rows of a (135, M) wire matrix
+        x = _words(rng, (135, m), canonical)[50:62]
+        x0 = _words(rng, (135, m), canonical)[7]
+    else:
+        x = _words(rng, (m, 12), canonical).T
+        x0 = _words(rng, (m, 3), canonical)[:, 1]
+    xs = (x,) if op == "mds_full" else (x0, x)
+    plan = gc.mds_plan(op, *xs)
+    got = _run(host_field, gc.launch_mds, plan, xs)
+    _same(got, gt.to_u64(getattr(pt, op)(*xs)))
+    if op == "mds_full":
+        state = _pow7_jax(_j(x))
+    else:
+        state = jnp.concatenate([_pow7_jax(_j(x0))[None], _j(x)[1:]])
+    _same(got, pj._mds(state.T).T)
 
 
 def _ext_mul_cases(rng):
@@ -248,7 +303,19 @@ def test_host_field_ext_powers(host_field, rng, n, layout):
 
 
 # field.cu's sum_mod reduces 2 * SUM_SMEM_WORDS words a lane in one block
+# (one block a lane), or 2 * SUM_SMEM_WORDS / SUM_TILE (a tile of 32 lanes a
+# block, where a lane's words are not contiguous and there are lanes to tile)
 SUM_BLOCK_WORDS = 12288
+SUM_TILE_WORDS = 384
+
+
+def _halvings(n, lanes, lane_axis_stride):
+    """The halvings into scratch before the block sum (qzk_sum_plan)."""
+    fits = SUM_TILE_WORDS if lane_axis_stride != 1 and lanes > 1 else SUM_BLOCK_WORDS
+    halvings = 0
+    while n > fits:
+        halvings, n = halvings + 1, n // 2
+    return halvings
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 37, 64, SUM_BLOCK_WORDS, SUM_BLOCK_WORDS + 7,
@@ -259,9 +326,7 @@ def test_host_field_sum_mod(host_field, rng, n, axis):
     (so that the odd tail's add takes a non-canonical word too)."""
     lanes = 2 if n > 100 else 5
     shape = (n, lanes) if axis == 0 else (lanes, n)
-    halvings, m = 0, n  # into scratch, alternating between two regions
-    while m > SUM_BLOCK_WORDS:
-        halvings, m = halvings + 1, m // 2
+    halvings = _halvings(n, lanes, lanes if axis == 0 else 1)
     above_p = gt.from_u64(rng.integers(P, 1 << 64, size=shape, dtype=np.uint64))
     for a in (_words(rng, shape), _words(rng, shape, False), above_p):
         plan = gc.lane_plan("sum_mod", a, axis)
@@ -270,6 +335,60 @@ def test_host_field_sum_mod(host_field, rng, n, axis):
         assert launches == 1 + halvings
         _same(got, gt.to_u64(gt.sum_mod(a, axis)))
         _same(got, gj.sum_mod(_j(a), axis))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 37, 306, SUM_TILE_WORDS + 1, SUM_BLOCK_WORDS + 7])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_host_field_dot_mod(host_field, rng, n, axis):
+    """The call sites' weighted sums: (T, M) terms by a (T, 1) column of
+    powers along axis 0 (37 lanes: a tile of 32 and a ragged one), and
+    (S, N) coefficients by a row of pairs' first words along axis 1; on
+    canonical and any 64-bit words."""
+    lanes = 37 if n <= SUM_TILE_WORDS + 1 else 3
+    for canonical in (True, False):
+        if axis == 0:
+            a = _words(rng, (n, lanes), canonical)
+            w = _words(rng, (n,), canonical)[:, None]
+        else:
+            a = _words(rng, (lanes, n), canonical)
+            w = _words(rng, (n, 2), canonical)[None, :, 0]
+        plan = gc.lane_plan("dot_mod", a, axis, w)
+        got = torch.empty(plan.out_shape, dtype=torch.int64)
+        launches = gc.launch_dot_mod(host_field, plan, a, w, got, None)
+        assert launches == 1 + _halvings(n, lanes, plan.axis[0])
+        _same(got, gt.to_u64(gt.dot_mod(a, w, axis)))
+        _same(got, gj.sum_mod(gj.mul(_j(a), _j(w)), axis))
+
+
+@pytest.mark.parametrize("case", ["vanishing", "zs_stage", "transposed", "run_of_one",
+                                  "chunk_of_one", "three_dims"])
+def test_host_field_prod_chunks(host_field, rng, case):
+    """Chunks of 7 over 80 routed wires (a ragged run of 3) as the
+    vanishing ((80, M) along axis 0) and zs_stage ((N, 80) along axis 1)
+    take them, a transposed view, a last run of one word and runs of one
+    word (left as they are, non-canonical too), and a strided 3-dim view."""
+    a, axis, chunk = {
+        "vanishing": (_words(rng, (80, 9)), 0, 7),
+        "zs_stage": (_words(rng, (9, 80)), 1, 7),
+        "transposed": (_words(rng, (9, 80)).T, 0, 7),
+        "run_of_one": (_words(rng, (8, 3), False), 0, 7),
+        "chunk_of_one": (_words(rng, (3, 5), False), 1, 1),
+        "three_dims": (_words(rng, (2, 16, 6), False).transpose(1, 2)[:, 1:], 2, 5),
+    }[case]
+    plan = gc.chunk_plan(a, axis, chunk)
+    got = _run(host_field, gc.launch_prod_chunks, plan, a)
+    _same(got, gt.to_u64(gt.prod_chunks(a, axis, chunk)))
+    x = jnp.moveaxis(_j(a), axis, 0)
+    runs = []
+    for lo in range(0, x.shape[0], chunk):
+        acc = x[lo]
+        for j in range(lo + 1, min(lo + chunk, x.shape[0])):
+            acc = gj.mul(acc, x[j])
+        runs.append(acc)
+    _same(got, jnp.moveaxis(jnp.stack(runs), 0, axis))
+    if chunk == 1 or case == "run_of_one":  # runs of one word are the words
+        last = got.movedim(axis, 0)[-1]
+        _same(last, gt.to_u64(a.movedim(axis, 0)[-1]))
 
 
 def test_host_field_sum_mod_strided_3d(host_field, rng):

@@ -31,6 +31,7 @@ def _calls(rng):
     sites' layouts."""
     a, b = _words(rng, (6, 8)), _words(rng, (8,))
     e, f = _words(rng, (5, 2)), _words(rng, (2,))
+    x = _words(rng, (8, 12)).T  # a (12, 8) state, as rows of a transpose
     return [
         ("add", (a, b)), ("sub", (a.T, a.T)), ("neg", (a,)), ("mul", (_words(rng, ()), a)),
         ("square", (a[:, ::2],)), ("mul_small", (a, 7)), ("reduce128", (a, b)),
@@ -38,15 +39,17 @@ def _calls(rng):
         ("inverse", (a,)), ("ext_inverse_vec", (e,)), ("batch_inverse_axis", (a, 1)),
         ("powers_vec", (b[3], 9)), ("ext_powers", (f, 7)), ("sum_mod", (a, 0)),
         ("sum_mod", (a, -1)), ("prefix_prod_exclusive", (b,)),
+        ("pow7", (a.T,)), ("mds_full", (x,)), ("mds_partial", (b, x)),
+        ("dot_mod", (a, b, 1)), ("dot_mod", (a, a[:, :1], 0)), ("prod_chunks", (a, 1, 3)),
     ]
 
 
-@pytest.mark.parametrize("i", range(18))
+@pytest.mark.parametrize("i", range(24))
 def test_cpu_tensors_take_the_plain_version(rng, i):
     gc.reset_launches()
     name, args = _calls(rng)[i]
     got = getattr(gc, name)(*args)
-    assert torch.equal(got, getattr(gt, name)(*args))
+    assert torch.equal(got, gc.plain_of(name)(*args))
     assert sum(gc.LAUNCHES.values()) == 0 and not gc.FIELD_SHAPES
 
 
@@ -90,6 +93,22 @@ def test_lane_plans():
         (40,), [40], [[10], [1]], (1, 0), 10)
     plan = gc.lane_plan("prefix_prod_exclusive", torch.zeros(9, dtype=torch.int64), 0)
     assert (plan.out_shape, plan.dims, plan.axis, plan.n) == ((9,), [1], (1, 1), 9)
+    # dot_mod: the vanishing's (T, M) terms by a (T, 1) column of powers,
+    # and the openings' (S, N) coefficients by a row of pairs
+    terms, apows = torch.zeros((306, 64), dtype=torch.int64), torch.zeros(306, dtype=torch.int64)
+    plan = gc.lane_plan("dot_mod", terms, 0, apows[:, None])
+    assert (plan.key, plan.out_shape, plan.dims, plan.strides, plan.axis, plan.n) == (
+        ("dot_mod", (306, 64), ((64, 1), (1, 0)), 0), (64,), [64], [[1], [1], [0]],
+        (64, 0, 1), 306)
+    pows = torch.zeros((16, 2), dtype=torch.int64)
+    plan = gc.lane_plan("dot_mod", a.T[:, :16], 1, pows[None, :, 0])
+    assert (plan.dims, plan.strides, plan.axis, plan.n) == ([10], [[1], [1], [0]], (10, 0, 2), 16)
+    # prod_chunks: (80, M) by chunks of 7 along axis 0, and (N, 80) along axis 1
+    plan = gc.chunk_plan(torch.zeros((80, 64), dtype=torch.int64), 0, 7)
+    assert (plan.key, plan.out_shape, plan.strides, plan.a_axis, plan.n) == (
+        ("prod_chunks", (80, 64), ((64, 1),), (0, 7)), (12, 64), (448, 1), 64, 80)
+    plan = gc.chunk_plan(torch.zeros((32, 80), dtype=torch.int64), -1, 7)
+    assert (plan.out_shape, plan.strides, plan.axis, plan.a_axis) == ((32, 12), (80, 7), 1, 1)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -113,6 +132,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gc.ext_mul(a, a)
     with pytest.raises(ValueError, match="ext_powers"):
         gc.ext_powers(a, 4)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        gc.dot_mod(a, torch.zeros((4, 2, 3), dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="chunk"):
+        gc.prod_chunks(a, 0, 0)
+    with pytest.raises(ValueError, match="\\(12, m\\) state"):
+        gc.mds_full(a)
+    with pytest.raises(ValueError, match="row 0"):
+        gc.mds_partial(a[0], torch.zeros((12, 4), dtype=torch.int64))
 
 
 def test_recorded_launches_count_at_each_replay():
@@ -140,6 +167,12 @@ def _key(name, args):
         return gc.powers_plan(name, *args).key
     if name == "mul_small":
         return gc.map_plan(name, args[0], c=args[1]).key
+    if name == "dot_mod":
+        return gc.lane_plan(name, args[0], args[2], args[1]).key
+    if name == "prod_chunks":
+        return gc.chunk_plan(*args).key
+    if name in ("mds_full", "mds_partial"):
+        return gc.mds_plan(name, *args).key
     return gc.map_plan(name.replace("ext_add", "add").replace("ext_sub", "sub"), *args).key
 
 
@@ -149,7 +182,7 @@ def test_call_of_repeats_a_key(rng):
         key = _key(name, args)
         fn, again = gc.call_of(key, lambda n: words[:n])
         assert _key(fn.__name__, again) == key, name
-        assert fn(*again).shape == getattr(gt, name)(*args).shape
+        assert fn(*again).shape == gc.plain_of(name)(*args).shape
 
 
 def test_field_kernel_build_needs_nvcc():
