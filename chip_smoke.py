@@ -86,7 +86,9 @@ Phases, in order:
            aggregate the two leaves with it, with the kernel launches
            counted from 0 and the root held to its pin; write the zk
            Wormhole proof in the qp-plonky2 byte format, hold it to its
-           pin, and read it back;
+           pin, and read it back; run the port's dummy-proof tool
+           (tools/export_dummy_proof.py) into a temporary directory and
+           hold its two files to the zk and non-zk Wormhole pins;
   verify   verify every proof on the host; reject the zk Wormhole proof
            with a tampered public input and with a flipped salt word in
            a wires query opening, and the non-zk one with a tampered
@@ -104,10 +106,13 @@ Phases, in order:
            (1, 12), the device challenger's duplex,
            beside that shape's dependent-chain bound, and summed over
            the warm zk prove's launches; K4-K7 at each family's costliest
-           key of the warm zk prove (K4 and K7 among the keys of their
-           redesigned ops: pow7, the round, dot_mod, prod_chunks), and
-           summed over its launches, in all and by op, each key's row in
-           a `field_shapes` JSON line),
+           key of the warm zk prove among the keys of its redesigned ops
+           (pow7, the round, dot_mod, prod_chunks; batch_divide_axis,
+           timed also at 16, 32 and 64 threads a lane, with
+           ext_inverse_vec's costliest key beside it; the multi-base
+           powers), and summed over its launches, in all and by op, each
+           key's row in a `field_shapes` JSON line; K5 and K6 also at the
+           keys of the warm (2, 1) chunk prove, `field_shapes_agg`),
            the card's name and power limit, and the final status line.
 
 Every phase prints one line with its elapsed seconds before its result.
@@ -403,9 +408,19 @@ FIELD_RECORDS = {
     "field_reduce": ("K7 field_reduce", "qzk_tpu/ops/goldilocks_jax.py:192-227; "
                                         "qzk_tpu/plonk/vanishing.py:140-161"),
 }
-# The ops of K4's and K7's redesign: their records take the costliest of
-# these keys.
-REDESIGNED_OPS = ("pow7", "mds_full", "mds_partial", "dot_mod", "prod_chunks")
+# The ops of each family's redesign: a family's record takes the
+# costliest of these keys.
+REDESIGNED_OPS = ("pow7", "mds_full", "mds_partial", "dot_mod", "prod_chunks",
+                  "batch_divide_axis", "powers_vec_multi", "ext_powers_multi")
+# A key recorded beside its family's: the element-wise extension inverse
+# of the FRI input (the addition chain's other user).
+BESIDE_OPS = {"field_inverse": "ext_inverse_vec"}
+# The families whose keys of the warm (2, 1) chunk prove the report
+# times too (its 2^15 lanes and powers)
+AGG_FAMILIES = ("field_inverse", "field_powers")
+# log2 of the threads a lane that the report times batch_divide_axis at,
+# beside the kernel's default
+BATCH_GROUP_SWEEP = (4, 5, 6)
 FIELD_EDGES = np.array([0, 1, gl.P - 1, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
 
 
@@ -483,7 +498,7 @@ def field_work(key) -> tuple[int, int, int]:
         return int(np.prod([n for n, s in zip(shp, st) if s != 0], dtype=np.int64))
 
     numel = int(np.prod(shape, dtype=np.int64))
-    inv_chain = 64  # the Fermat walk's dependent squarings
+    inv_chain = 72  # the addition chain's dependent multiplies (63 squarings, 9 products)
     if op in ("mds_full", "mds_partial"):
         # the state's words read once (mds_partial: row 0 from x0, rows
         # 1-11 from x), 12 m written; a column's 144 products of a word's
@@ -510,12 +525,24 @@ def field_work(key) -> tuple[int, int, int]:
         # k - runs multiplies a lane make its runs' products
         return (8 * (distinct(shape, strides[0]) + lanes * runs), mm * lanes * (k - runs),
                 2 * max(0, min(chunk, k) - 1))
-    if op in ("powers_vec", "ext_powers"):
-        # n - 1 products make the n powers, whatever order a kernel takes
-        n = shape[0]
-        ext = op == "ext_powers"
+    if op in ("powers_vec", "ext_powers", "powers_vec_multi", "ext_powers_multi"):
+        # n - 1 products make a base's n powers, whatever order a kernel
+        # takes; the chain: b^(n-1) takes log2(n) dependent squarings
+        bases, n = (shape[0], shape[1]) if op.endswith("_multi") else (1, shape[0])
+        ext = op.startswith("ext")
         chain = max(1, (n - 1).bit_length()) * 2 * (3 if ext else 1)
-        return 8 * (numel + 1 + ext), mm * (5 if ext else 1) * max(0, n - 1), 2 * chain
+        return (8 * (numel + bases * (1 + ext)), mm * (5 if ext else 1) * bases * max(0, n - 1),
+                2 * chain)
+    if op == "batch_divide_axis":
+        # k - 1 products a lane's total, one inverse, 2 (k - 1) to the
+        # words' inverses and k by the numerators; the chain: a tree
+        # product of the lane, the inverse and a tree back
+        axis = extra
+        k = shape[axis]
+        lanes = numel // max(1, k)
+        read = distinct(shape, strides[0]) + distinct(shape, strides[1])
+        return (8 * (read + numel), mm * lanes * (4 * k - 3 + inv_chain),
+                2 * (2 * max(1, (k - 1).bit_length()) + inv_chain))
     if op in ("sum_mod", "batch_inverse_axis", "prefix_prod_exclusive"):
         axis = extra or 0
         k = shape[axis]
@@ -529,11 +556,12 @@ def field_work(key) -> tuple[int, int, int]:
             t = gc.prefix_threads(k)
             chain = -(-k // t) + t.bit_length() - 1
             return 8 * (read + numel), mm * lanes * max(0, k - 1), 2 * chain
-        return 8 * (read + numel), mm * lanes * (3 * k - 1 + 2 * 63), 2 * (2 * k + inv_chain)
+        return (8 * (read + numel), mm * lanes * (3 * k - 3 + inv_chain),
+                2 * (2 * max(1, (k - 1).bit_length()) + inv_chain))
     read = sum(distinct(shape, st) for st in strides)
     muls = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "square": 1, "mul_small": 1,
-            "reduce128": 0.2, "ext_mul": 5 / 2, "pow7": 4, "inverse": 126,
-            "ext_inverse_vec": 131 / 2}[op]  # field multiplies an output word
+            "reduce128": 0.2, "ext_mul": 5 / 2, "pow7": 4, "inverse": inv_chain,
+            "ext_inverse_vec": (inv_chain + 5) / 2}[op]  # field multiplies an output word
     chain = {"inverse": inv_chain, "ext_inverse_vec": inv_chain + 4, "pow7": 3}.get(op, 1)
     return 8 * (read + numel), int(mm * muls * numel), 2 * chain
 
@@ -558,6 +586,30 @@ def time_field(counts: Counter, rng, dev) -> list[dict]:
     return rows
 
 
+def time_batch_groups(row, dev) -> dict:
+    """batch_divide_axis at a field_shapes row's key, timed (graph_ms)
+    at each thread count a lane of BATCH_GROUP_SWEEP; the wrapper's own
+    count is the kernel's default (field.cu's qzk_batch_group)."""
+    lib = gc._lib()
+    key = ("batch_divide_axis", tuple(row["shape"]), tuple(tuple(s) for s in row["strides"]),
+           row["extra"])
+    _, (nums, dens, axis) = gc.call_of(key, field_pool(np.random.default_rng(16), [key],
+                                                       dev).make)
+    plan = gc.lane_plan("batch_divide_axis", dens, axis, nums)
+    want = gt.batch_divide_axis(nums, dens, axis)
+    out = {}
+    for log_g in BATCH_GROUP_SWEEP:
+        def call():
+            return gc._launch(plan.key, plan.out_shape, dev, lambda lib_, o, s: (
+                gc.launch_batch_inverse(lib, plan, dens, o, s, nums, log_g)))
+        require_equal(f"batch_divide_axis G={1 << log_g}", call(), want)
+        out[str(1 << log_g)] = graph_ms(call)
+    default = 1 << gc.batch_group(lib, plan.n)
+    log(f"K5 batch_divide_axis {list(row['shape'])} by threads a lane (graph_ms; default "
+        f"{default}): " + ", ".join(f"G={g} {ms:.6f} ms" for g, ms in out.items()))
+    return {"default": default, **out}
+
+
 def chain_ms(imads: int) -> float:
     """A chain of dependent 32-bit multiply-adds at IMAD_LATENCY_CLOCKS
     each, on the clock that peak_int_muls reads."""
@@ -568,14 +620,22 @@ def chain_ms(imads: int) -> float:
 
 def field_records(state, rec) -> list[dict]:
     """The K4-K7 records of the kernels line: each family at its most
-    costly key of the warm zk prove (by its bound; K4 and K7 among the
-    keys of REDESIGNED_OPS), with sums over the prove's launches, in all
-    and by op.  Every key's row is logged as one JSON line,
-    {"field_shapes": [...]}."""
+    costly key of the warm zk prove among the keys of its redesign's ops
+    (REDESIGNED_OPS; by the bound), with sums over the prove's launches,
+    in all and by op, the key of BESIDE_OPS beside K5's, and K5's key
+    timed at each thread count a lane of BATCH_GROUP_SWEEP; for
+    AGG_FAMILIES, the same at the keys of the warm (2, 1) chunk prove.
+    Every key's row is logged as one JSON line, {"field_shapes": [...]}
+    ({"field_shapes_agg": [...]} for the chunk's)."""
     dev = torch.device("cuda")
     rows = time_field(state["runs"]["wormhole_zk"]["field_shapes"],
                       np.random.default_rng(15), dev)
     log(json.dumps({"field_shapes": rows}))
+    agg_rows = time_field(Counter({k: c for k, c in
+                                   state["agg_runs"]["agg_2_1"]["field_shapes"].items()
+                                   if gc.FAMILY_OF[k[0]] in AGG_FAMILIES}),
+                          np.random.default_rng(17), dev)
+    log(json.dumps({"field_shapes_agg": agg_rows}))
     records = []
     for fam, (name, replaces) in FIELD_RECORDS.items():
         mine = [r for r in rows if r["family"] == fam]
@@ -584,7 +644,26 @@ def field_records(state, rec) -> list[dict]:
         r = rec(name, "qzk_tpu_torch/ops/csrc/field.cu", replaces, fam, top["ms"],
                 top["plain_ms"], 0, 0, [top["op"], top["shape"], top["strides"]])
         r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                 chain_bound_ms=top["chain_bound_ms"])
+                 chain_bound_ms=top["chain_bound_ms"], key_count=top["count"])
+        beside = [x for x in mine if x["op"] == BESIDE_OPS.get(fam)]
+        if beside:
+            b = max(beside, key=lambda x: x["bound_ms"])
+            r["beside"] = {k: b[k] for k in ("op", "shape", "count", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "chain_bound_ms")}
+            log(f"{name} beside: {b['op']} {b['shape']} {b['ms']:.6f} ms (bound "
+                f"{b['bound_ms']:.6f}, chain {b['chain_bound_ms']:.6f}), {b['count']} a prove")
+        if top["op"] == "batch_divide_axis":
+            r["batch_group_ms"] = time_batch_groups(top, dev)
+        mine_agg = [x for x in agg_rows if x["family"] == fam]
+        if mine_agg:
+            a = max(mine_agg, key=lambda x: x["bound_ms"])
+            r["agg"] = {k: a[k] for k in ("op", "shape", "count", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "chain_bound_ms")}
+            r.update({f"prove_{k}_agg": sum(x["count"] * x[k] for x in mine_agg)
+                      for k in ("ms", "bound_ms", "chain_bound_ms")})
+            log(f"{name} per warm (2, 1) chunk prove: {sum(x['count'] for x in mine_agg)} calls, "
+                f"{r['prove_ms_agg']:.4f} ms (bound {r['prove_bound_ms_agg']:.4f} ms); costliest "
+                f"key {a['op']} {a['shape']} {a['ms']:.6f} ms (bound {a['bound_ms']:.6f})")
         ops = {}
         for op in gc.FAMILIES[fam]:
             sel = [x for x in mine if x["op"] == op]
@@ -1422,6 +1501,22 @@ def phase_artifacts(state) -> None:
 
         resume_chunk_from_disk(state, Path(tmp) / "chunks")
         write_plonky2_proof(state)
+        export_dummy_proofs(Path(tmp) / "generated-bins")
+
+
+def export_dummy_proofs(outdir) -> None:
+    """The port's dummy-proof tool on the card (its own circuit builds
+    and first proves): dummy_proof_zk.bin and dummy_proof.bin held to the
+    zk and non-zk Wormhole pins."""
+    from qzk_tpu_torch.models.wormhole import fixtures as wfix
+    from qzk_tpu_torch.tools import export_dummy_proof as tool
+
+    with Phase("artifacts: export_dummy_proof (two circuit builds, first proves, verifies)"):
+        zk_path, nonzk_path = tool.export(outdir, "cuda")
+    require_sha256("export_dummy_proof: dummy_proof_zk.bin", zk_path.read_bytes(),
+                   wfix.WORMHOLE_ZK_PROOF_SHA256)
+    require_sha256("export_dummy_proof: dummy_proof.bin", nonzk_path.read_bytes(),
+                   wfix.WORMHOLE_NONZK_PROOF_SHA256)
 
 
 def resume_chunk_from_disk(state, cache_dir) -> None:

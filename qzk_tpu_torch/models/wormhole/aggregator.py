@@ -310,7 +310,7 @@ def pad_with_dummy_proofs(
         if dummy_proof is None:
             raise ValueError(
                 "proof buffer not full and no dummy proof available "
-                "(generate one with tools/export_dummy_proof.py)"
+                "(generate one with python3 -m qzk_tpu_torch.tools.export_dummy_proof)"
             )
         proofs = proofs + [dummy_proof] * (proof_len - len(proofs))
     return proofs

@@ -30,22 +30,45 @@
 //                     allow, and a grid of at most 8 blocks an SM walking
 //                     the work; a round is one launch, its 144 small MDS
 //                     products immediates of the code.
-//   K5 field_inverse  inverse and ext_inverse_vec, one element a thread
-//                     (the same 64-step Fermat walk, 0 -> 0), and
-//                     batch_inverse_axis along a short axis, one lane a
-//                     thread: the plain Montgomery algorithm (prefix, one
-//                     Fermat, back-substitution), so a zero in a lane zeroes
-//                     that lane's outputs as the plain version does.
-//                     Replaces :129-150, :166-190 and :250-256.  Bound: the
-//                     chain of dependent multiplies a thread (a lane's 2K
-//                     prefix and back-substitution steps and the Fermat
-//                     walk's 64 squarings), each at least two dependent
-//                     32-bit multiply-adds.
-//   K6 field_powers   powers_vec and ext_powers: output i = b^i, one output
-//                     a thread, by square and multiply from b.  Replaces
-//                     :153-163 and :258-268.  Bound: bytes; the function's
-//                     n - 1 products (five 32-bit multiply-adds a field
-//                     multiply, at 16.727e12 a second) take less.
+//   K5 field_inverse  inverse and ext_inverse_vec, one element a thread,
+//                     and batch_inverse_axis and batch_divide_axis (nums
+//                     times the batch inverse of dens) along a short
+//                     axis.  Replaces :129-150, :166-190 and :250-256, and
+//                     the zs stage's multiply after the batch inverse
+//                     (qzk_tpu/plonk/device_prover.py:414).  Design: the
+//                     Fermat inverse is plonky2's addition chain for p - 2
+//                     (63 squarings and 9 multiplies, where the plain walk
+//                     takes 127; 0 -> 0).  A lane of k words takes a group
+//                     of G threads (16 for the prove's k = 80), and a block
+//                     of 256 threads 256 / G lanes: the block's tile moves
+//                     through shared memory with neighbouring threads on
+//                     neighbouring addresses, whether a lane's words or the
+//                     lanes are contiguous; a thread multiplies its k / G
+//                     words in registers, a prefix and a suffix scan of the
+//                     group's products (in shared memory, log2 G steps)
+//                     give the lane's total, and the block's first threads
+//                     invert their lanes' totals (one Fermat a lane, so a
+//                     zero in a lane zeroes that lane's outputs and no
+//                     other's, as in the plain version; packed, so that one
+//                     warp issues the chain for 32 lanes); each thread
+//                     back-substitutes its words.  No prefix goes to device
+//                     memory: each word is read once and each output
+//                     written once.  Bound: bytes (dens, nums and the
+//                     output).  The dependent chain (k / G words each way,
+//                     log2 G scan steps and the chain's 72 multiplies) is
+//                     longer on an H100: a launch at the prove's (8192, 80)
+//                     takes about twice the time of one Fermat chain a
+//                     thread over (65536, 2) (ext_inverse_vec's; PERF.md).
+//   K6 field_powers   powers_vec and ext_powers, and their multi-base forms
+//                     (up to MAX_BASES bases in one launch, out (B, n) or
+//                     (B, n, 2)).  Replaces :153-163 and :258-268.
+//                     Design: a block builds b^j (j < 2^s) and (b^(2^s))^q
+//                     (q < 2^u) in shared memory by the plain doubling
+//                     steps, and output i is their product at (i mod 2^s,
+//                     i >> s): a chain of about log2 n + 1 multiplies.
+//                     Bound: bytes; the function's n - 1 products a base
+//                     (five 32-bit multiply-adds a field multiply, at
+//                     16.727e12 a second) take less.
 //   K7 field_reduce   sum_mod and dot_mod (sum_mod of a product by a
 //                     weight broadcast along the other dims, the product
 //                     formed as it is read and never written) along any
@@ -91,7 +114,19 @@ namespace {
 
 constexpr int MAX_DIMS = 4;
 constexpr int MAP_THREADS = 256;
-constexpr int LANE_THREADS = 128;
+// batch_inverse_axis: a block of BATCH_THREADS threads, G a lane (G <=
+// BATCH_THREADS, by default the least power of two that leaves a thread
+// at most BATCH_WORDS words of its lane).
+constexpr int BATCH_THREADS = 256;
+constexpr int BATCH_WORDS = 5;
+// Blocks an SM that the batch kernel's registers must allow: (8192, 80)
+// at 16 threads a lane is 512 blocks, one wave at 4 an SM on 132 SMs.
+constexpr int BATCH_MIN_BLOCKS = 4;
+// powers: bases a launch, threads a block, and the most powers a base
+// (two tables of 2^12 entries at most).
+constexpr int MAX_BASES = 8;
+constexpr int POW_THREADS = 256;
+constexpr int POW_MAX_LOG_N = 24;
 constexpr long long MAX_BLOCKS = 1 << 16;
 // The fast map path's grid: at most this many blocks of MAP_THREADS an SM.
 constexpr int MAP_BLOCKS_PER_SM = 8;
@@ -145,6 +180,17 @@ __device__ __forceinline__ void ext_mul(uint64_t a0, uint64_t a1, uint64_t b0, u
   c1 = gl::add(gl::mul(a0, b1), gl::mul(a1, b0));
 }
 
+// The same product weakly, for any 64-bit words: each component some word
+// congruent to the exact value (the sums by add_weak, exact mod p on any
+// words, and 7 t as a 67-bit product reduced weakly).
+__device__ __forceinline__ void ext_mul_weak(uint64_t a0, uint64_t a1, uint64_t b0, uint64_t b1,
+                                             uint64_t& c0, uint64_t& c1) {
+  const uint64_t t = gl::mul_weak(a1, b1);
+  const uint32_t t7_hi = (uint32_t)(((t >> 32) * 7 + (((t & 0xFFFFFFFFull) * 7) >> 32)) >> 32);
+  c0 = gl::add_weak(gl::mul_weak(a0, b0), gl::reduce96_weak(t * 7, t7_hi));
+  c1 = gl::add_weak(gl::mul_weak(a0, b1), gl::mul_weak(a1, b0));
+}
+
 // x^7, the S-box: x^2, x^3 = x^2 x, x^7 = (x^2)^2 x^3 as the plain x7,
 // weakly in between; the canonical value of the exact product at the end
 // is the plain version's word.
@@ -160,15 +206,27 @@ __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
   return gl::canonical(gl::reduce_weak(r));
 }
 
-// a^(p-2) by the plain inverse's walk over the bits of p - 2; 0 -> 0.
+// t^(2^k), weakly.
+__device__ __forceinline__ uint64_t square_n(uint64_t t, int k) {
+  for (int i = 0; i < k; ++i) t = gl::mul_weak(t, t);
+  return t;
+}
+
+// a^(p-2) by plonky2's addition chain for p - 2: 63 squarings and 9
+// multiplies, weakly in between (t_k = a^(2^k - 1)); 0 -> 0.  With t63 =
+// t31^(2^32) t31 = a^((2^31 - 1)(2^32 + 1)), t63^2 a = a^(2^64 - 2^32 - 1)
+// = a^(p-2).  gl::mul is exact, so the canonical value at the end is the
+// plain walk's word.
 __device__ __forceinline__ uint64_t inverse(uint64_t a) {
-  constexpr uint64_t E = gl::P - 2;
-  uint64_t result = 1, acc = a;
-  for (int i = 0; i < 64; ++i) {
-    if ((E >> i) & 1) result = gl::mul(result, acc);
-    if (i < 63) acc = gl::mul(acc, acc);
-  }
-  return result;
+  const uint64_t t2 = gl::mul_weak(gl::mul_weak(a, a), a);
+  const uint64_t t3 = gl::mul_weak(gl::mul_weak(t2, t2), a);
+  const uint64_t t6 = gl::mul_weak(square_n(t3, 3), t3);
+  const uint64_t t12 = gl::mul_weak(square_n(t6, 6), t6);
+  const uint64_t t24 = gl::mul_weak(square_n(t12, 12), t12);
+  const uint64_t t30 = gl::mul_weak(square_n(t24, 6), t6);
+  const uint64_t t31 = gl::mul_weak(gl::mul_weak(t30, t30), a);
+  const uint64_t t63 = gl::mul_weak(square_n(t31, 32), t31);
+  return gl::canonical(gl::mul_weak(gl::mul_weak(t63, t63), a));
 }
 
 __device__ __forceinline__ long long first_index() {
@@ -335,55 +393,216 @@ __global__ void __launch_bounds__(MAP_THREADS)
   }
 }
 
-// One lane a thread: a lane is the k words a[lane + j * a_axis], and its
-// outputs out[lane' + j * o_axis].  The prefix products go to the output
-// first, then the back-substitution turns each into its inverse.
-__global__ void __launch_bounds__(LANE_THREADS)
-    batch_inverse_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis, Dims d,
-                         long long lanes, Strides so, long long o_axis, long long k,
+// One side of a tile of L lanes of k words: an operand's (or the
+// output's) words of lane l at off[l] + j * axis, and shared memory
+// t[l * k + j].  A block walks the tile's L k words so that neighbouring
+// threads touch neighbouring addresses: lane by lane along the words
+// where a lane's words are contiguous, else word by word across the
+// lanes.  Element e of the walk is word j of lane l:
+// (e / k by a multiply: exact while e k < 2^32.)
+__device__ __forceinline__ void tile_pos(int e, long long axis, int L, int log_l, int k, int& l,
+                                         int& j) {
+  const unsigned long long recip = 0xFFFFFFFFull / (unsigned)k + 1;  // ceil(2^32 / k)
+  l = axis == 1 ? (int)(((unsigned long long)(unsigned)e * recip) >> 32) : e & (L - 1);
+  j = axis == 1 ? e - l * k : e >> log_l;
+}
+
+__device__ __forceinline__ void tile_load(const uint64_t* __restrict__ src, const long long* off,
+                                          long long axis, int L, int log_l, int k, int live,
+                                          uint64_t* t) {
+  for (int e = threadIdx.x; e < L * k; e += blockDim.x) {
+    int l, j;
+    tile_pos(e, axis, L, log_l, k, l, j);
+    if (l < live) t[l * k + j] = src[off[l] + j * axis];
+  }
+}
+
+__device__ __forceinline__ void tile_store(uint64_t* __restrict__ dst, const long long* off,
+                                           long long axis, int L, int log_l, int k, int live,
+                                           const uint64_t* t) {
+  for (int e = threadIdx.x; e < L * k; e += blockDim.x) {
+    int l, j;
+    tile_pos(e, axis, L, log_l, k, l, j);
+    if (l < live) dst[off[l] + j * axis] = t[l * k + j];
+  }
+}
+
+// batch_inverse_axis (DIV false) and batch_divide_axis (out = num /
+// a along the lane), a group of G = 2^log_g threads a lane and L =
+// blockDim.x / G lanes a block.  A lane is the k words a[lane + j *
+// a_axis] (num's at n_axis, the outputs' at o_axis), k <= G *
+// BATCH_WORDS.  Thread t of a group holds the words j = t + r G in
+// registers: the product of those before each (lp) and of all (q_t);
+// the words themselves stay in the tile.  Two scans of the group's q in shared memory, a prefix and a
+// suffix at once, give each thread the product of the other threads'
+// words and the lane's total; thread l of the block inverts lane l's
+// total (one Fermat a lane); thread t's inverse of q_t is then that inverse
+// times the other threads' product, and its words' inverses come from it
+// by back-substitution.  The products in between are weak (exact mod p);
+// every output is the canonical value of an exact product, so it is the
+// plain version's word; a zero in a lane zeroes that lane's total,
+// inverse and outputs, and no other lane's.
+// Shared memory: the tile's lane offsets, the a tile (overwritten by the
+// outputs), num's tile, the two scans and the lanes' inverses.
+template <bool DIV>
+__global__ void __launch_bounds__(BATCH_THREADS, BATCH_MIN_BLOCKS)
+    batch_inverse_kernel(const uint64_t* __restrict__ a, Strides sa, long long a_axis,
+                         const uint64_t* __restrict__ num, Strides sn, long long n_axis, Dims d,
+                         long long lanes, Strides so, long long o_axis, int k, int log_g,
                          uint64_t* __restrict__ out) {
-  for (long long lane = first_index(); lane < lanes; lane += grid_step()) {
-    long long ia, io;
-    offsets(d, sa, so, lane, ia, io);
-    const uint64_t* x = a + ia;
-    uint64_t* y = out + io;
-    uint64_t acc = 1;
-    for (long long j = 0; j < k; ++j) {
-      y[j * o_axis] = acc;
-      acc = gl::mul(acc, x[j * a_axis]);
+  extern __shared__ uint64_t smem[];
+  const int G = 1 << log_g, T = blockDim.x, L = T >> log_g;
+  int log_l = 0;
+  while ((1 << log_l) < L) ++log_l;
+  long long* off = reinterpret_cast<long long*>(smem);  // [3][L]: a, num, out
+  uint64_t* xt = smem + 3 * L;                          // [L][k]
+  uint64_t* nt = xt + L * k;                            // [L][k] (DIV)
+  uint64_t* pre = nt + (DIV ? L * k : 0);               // [T]
+  uint64_t* suf = pre + T;                              // [T]
+  uint64_t* invs = suf + T;                             // [L]
+  const int tid = threadIdx.x, l = tid >> log_g, t = tid & (G - 1);
+  const int row = l * k;
+  for (long long lane0 = (long long)blockIdx.x * L; lane0 < lanes;
+       lane0 += (long long)gridDim.x * L) {
+    const int live = lanes - lane0 < L ? (int)(lanes - lane0) : L;
+    if (tid < live) {
+      offsets(d, sa, so, lane0 + tid, off[tid], off[2 * L + tid]);
+      long long unused;
+      if (DIV) offsets(d, sn, sn, lane0 + tid, off[L + tid], unused);
     }
-    uint64_t inv = inverse(acc);
-    for (long long j = k - 1; j >= 0; --j) {
-      y[j * o_axis] = gl::mul(inv, y[j * o_axis]);
-      if (j) inv = gl::mul(inv, x[j * a_axis]);
+    __syncthreads();
+    tile_load(a, off, a_axis, L, log_l, k, live, xt);
+    if (DIV) tile_load(num, off + L, n_axis, L, log_l, k, live, nt);
+    __syncthreads();
+    uint64_t lp[BATCH_WORDS], q = 1;
+#pragma unroll
+    for (int r = 0; r < BATCH_WORDS; ++r) {
+      const int j = t + (r << log_g);
+      if (j < k) {
+        lp[r] = q;
+        q = gl::mul_weak(q, xt[row + j]);
+      }
     }
+    // inclusive prefix (pre) and suffix (suf) products of the group's q
+    uint64_t ip = q, is = q;
+    pre[tid] = q;
+    suf[tid] = q;
+    for (int s = 1; s < G; s <<= 1) {
+      __syncthreads();
+      const uint64_t p = t >= s ? pre[tid - s] : 1;
+      const uint64_t f = t + s < G ? suf[tid + s] : 1;
+      __syncthreads();
+      if (t >= s) pre[tid] = ip = gl::mul_weak(ip, p);
+      if (t + s < G) suf[tid] = is = gl::mul_weak(is, f);
+    }
+    __syncthreads();
+    const uint64_t before = t ? pre[tid - 1] : 1, after = t + 1 < G ? suf[tid + 1] : 1;
+    // the lanes' totals, inverted by the block's first L threads, so that
+    // one warp issues the chain for 32 lanes instead of each warp for its
+    // own few
+    if (tid < L) invs[tid] = inverse(pre[tid * G + G - 1]);
+    const uint64_t others = gl::mul_weak(before, after);
+    __syncthreads();
+    uint64_t w = gl::mul_weak(invs[l], others);  // the inverse of q
+#pragma unroll
+    for (int r = BATCH_WORDS - 1; r >= 0; --r) {
+      const int j = t + (r << log_g);
+      if (j < k) {
+        const uint64_t x = xt[row + j];
+        uint64_t o = gl::mul_weak(w, lp[r]);
+        if (DIV) o = gl::mul_weak(o, nt[row + j]);
+        xt[row + j] = gl::canonical(o);
+        w = gl::mul_weak(w, x);
+      }
+    }
+    __syncthreads();
+    tile_store(out, off + 2 * L, o_axis, L, log_l, k, live, xt);
+    __syncthreads();  // the tile and the offsets are read before the next tile writes them
   }
 }
 
 // ---- K6 ---------------------------------------------------------------------
 
+// The bases of one powers launch, base z at p[z] (its second word, for
+// an extension base, at p[z] + c[z]); passed by value, so that a launch
+// captured in a CUDA graph keeps them.
+struct Bases {
+  const uint64_t* p[MAX_BASES];
+  long long c[MAX_BASES];
+};
+
+// Field or extension element in registers, weakly (any words congruent
+// to its value).
 template <bool EXT>
-__global__ void __launch_bounds__(MAP_THREADS)
-    field_powers_kernel(const uint64_t* __restrict__ b, long long cb, long long n,
-                        uint64_t* __restrict__ out) {
+struct Elem {
+  uint64_t v0, v1;
+};
+
+template <bool EXT>
+__device__ __forceinline__ Elem<EXT> elem_mul(Elem<EXT> a, Elem<EXT> b) {
+  Elem<EXT> r{0, 0};
+  if (EXT) ext_mul_weak(a.v0, a.v1, b.v0, b.v1, r.v0, r.v1);
+  else r.v0 = gl::mul_weak(a.v0, b.v0);
+  return r;
+}
+
+template <bool EXT>
+__device__ __forceinline__ Elem<EXT> tab_get(const uint64_t* t, int i) {
+  return EXT ? Elem<EXT>{t[2 * i], t[2 * i + 1]} : Elem<EXT>{t[i], 0};
+}
+
+template <bool EXT>
+__device__ __forceinline__ void tab_set(uint64_t* t, int i, Elem<EXT> e) {
+  if (EXT) {
+    t[2 * i] = e.v0;
+    t[2 * i + 1] = e.v1;
+  } else {
+    t[i] = e.v0;
+  }
+}
+
+// tab[j] = cur^j for j < 2^steps, by the plain version's doubling steps
+// (tab[0] = 1 set before): step s fills [2^s, 2^(s+1)) from [0, 2^s),
+// one multiply a thread and a barrier.  Returns cur^(2^steps).
+template <bool EXT>
+__device__ __forceinline__ Elem<EXT> doubling(uint64_t* tab, int steps, Elem<EXT> cur) {
+  for (int s = 0; s < steps; ++s) {
+    __syncthreads();
+    for (int j = (1 << s) + threadIdx.x; j < (2 << s); j += blockDim.x)
+      tab_set<EXT>(tab, j, elem_mul<EXT>(tab_get<EXT>(tab, j - (1 << s)), cur));
+    cur = elem_mul<EXT>(cur, cur);
+  }
+  return cur;
+}
+
+// out[z][i] = b_z^i for i < n, base z = blockIdx.y.  Each block builds two
+// tables in shared memory, T[j] = b^j (j < 2^s) and U[q] = (b^(2^s))^q (q
+// < 2^u, 2^(s+u) >= n), then writes its outputs as T[i mod 2^s] U[i >>
+// s], one multiply each: a chain of s + u + 1 dependent multiplies
+// instead of square and multiply's 2 log2(n).  The tables are weak; each
+// output is the canonical value of an exact product, which is the plain
+// version's word whatever the grouping; b^0 is 1 (1 + 0x) as there.
+template <bool EXT>
+__global__ void __launch_bounds__(POW_THREADS)
+    field_powers_kernel(Bases bs, long long n, int s, int u, uint64_t* __restrict__ out) {
+  extern __shared__ uint64_t tabs[];
+  constexpr int W = EXT ? 2 : 1;
+  uint64_t* tt = tabs;
+  uint64_t* ut = tabs + (W << s);
+  const int z = blockIdx.y;
+  const uint64_t* b = bs.p[z];
+  if (threadIdx.x == 0) {
+    tab_set<EXT>(tt, 0, Elem<EXT>{1, 0});
+    tab_set<EXT>(ut, 0, Elem<EXT>{1, 0});
+  }
+  const Elem<EXT> c = doubling<EXT>(tt, s, Elem<EXT>{b[0], EXT ? b[bs.c[z]] : 0});
+  doubling<EXT>(ut, u, c);
+  __syncthreads();
+  uint64_t* o = out + (long long)z * n * W;
   for (long long i = first_index(); i < n; i += grid_step()) {
-    uint64_t r0 = 1, r1 = 0, b0 = b[0], b1 = EXT ? b[cb] : 0;
-    for (long long e = i; e; e >>= 1) {
-      if (e & 1) {
-        if (EXT) ext_mul(r0, r1, b0, b1, r0, r1);
-        else r0 = gl::mul(r0, b0);
-      }
-      if (e > 1) {
-        if (EXT) ext_mul(b0, b1, b0, b1, b0, b1);
-        else b0 = gl::mul(b0, b0);
-      }
-    }
-    if (EXT) {
-      out[2 * i] = r0;
-      out[2 * i + 1] = r1;
-    } else {
-      out[i] = r0;
-    }
+    const Elem<EXT> e = elem_mul<EXT>(tab_get<EXT>(tt, (int)(i & ((1 << s) - 1))),
+                                      tab_get<EXT>(ut, (int)(i >> s)));
+    tab_set<EXT>(o + i * W, 0, Elem<EXT>{gl::canonical(e.v0), gl::canonical(e.v1)});
   }
 }
 
@@ -815,29 +1034,87 @@ int qzk_field_inverse(int ext, const uint64_t* a, const long long* sa, long long
   return (int)cudaGetLastError();
 }
 
-// K5, batch_inverse_axis: lanes over `shape` at strides sa (input) and so
-// (output), k words a lane at a_axis and o_axis.
-int qzk_batch_inverse(const uint64_t* a, const long long* sa, long long a_axis, int nd,
+// K5, batch_inverse_axis: the log2 of the threads a lane (G) that
+// qzk_batch_inverse takes by default for lanes of k words, 1 <= k <=
+// BATCH_THREADS * BATCH_WORDS; -1 past that.
+int qzk_batch_group(long long k) {
+  if (k < 1 || k > (long long)BATCH_THREADS * BATCH_WORDS) return -1;
+  int log_g = 0;
+  while ((long long)BATCH_WORDS << log_g < k) ++log_g;
+  return log_g;
+}
+
+// K5, batch_inverse_axis (num null) and batch_divide_axis (out = num
+// times the batch inverse of a): lanes over `shape` at strides sa (a), sn
+// (num) and so (the output), k words a lane at a_axis, n_axis and o_axis;
+// G = 2^log_g threads a lane (G <= BATCH_THREADS, k <= G * BATCH_WORDS).
+int qzk_batch_inverse(const uint64_t* a, const long long* sa, long long a_axis,
+                      const uint64_t* num, const long long* sn, long long n_axis, int nd,
                       const long long* shape, const long long* so, long long o_axis, long long k,
-                      uint64_t* out, void* stream) {
+                      int log_g, uint64_t* out, void* stream) {
   Dims d;
   long long lanes;
-  if (!make_dims(nd, shape, d, lanes)) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = blocks_for(lanes, LANE_THREADS);
-  batch_inverse_kernel<<<blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(
-      a, make_strides(nd, sa), a_axis, d, lanes, make_strides(nd, so), o_axis, k, out);
+  if (!make_dims(nd, shape, d, lanes) || log_g < 0 || (1 << log_g) > BATCH_THREADS || k < 1 ||
+      k > ((long long)BATCH_WORDS << log_g))
+    return (int)cudaErrorInvalidValue;
+  const int threads = BATCH_THREADS, L = threads >> log_g;
+  const bool div = num != nullptr;
+  // at most 32 KB: L k <= BATCH_THREADS * BATCH_WORDS
+  const size_t words = 4 * (size_t)L + (div ? 2 : 1) * (size_t)L * k + 2 * (size_t)threads;
+  const unsigned blocks = blocks_for(lanes, L);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Strides A = make_strides(nd, sa), O = make_strides(nd, so);
+  if (div)
+    batch_inverse_kernel<true><<<blocks, threads, words * 8, s>>>(
+        a, A, a_axis, num, make_strides(nd, sn), n_axis, d, lanes, O, o_axis, (int)k, log_g,
+        out);
+  else
+    batch_inverse_kernel<false><<<blocks, threads, words * 8, s>>>(
+        a, A, a_axis, a, A, 0, d, lanes, O, o_axis, (int)k, log_g, out);
   return (int)cudaGetLastError();
 }
 
-// K6: out[i] = b^i for i < n; with ext set, the extension powers of
-// (b[0], b[cb]) into out's pairs.
-int qzk_field_powers(int ext, const uint64_t* b, long long cb, long long n, uint64_t* out,
-                     void* stream) {
-  const unsigned blocks = blocks_for(n, MAP_THREADS);
-  if (ext)
-    field_powers_kernel<true><<<blocks, MAP_THREADS, 0, (cudaStream_t)stream>>>(b, cb, n, out);
-  else
-    field_powers_kernel<false><<<blocks, MAP_THREADS, 0, (cudaStream_t)stream>>>(b, cb, n, out);
+// K6: the table sizes of a launch for n >= 1 powers: s (log2 of T's
+// entries) and u (of U's), s + u = ceil(log2 n), s - u in {0, 1}; returns
+// -1 above 2^POW_MAX_LOG_N.
+int qzk_powers_tables(long long n, int* u) {
+  int log_n = 0;
+  while ((1LL << log_n) < n) ++log_n;
+  if (n < 1 || log_n > POW_MAX_LOG_N) return -1;
+  *u = log_n / 2;
+  return log_n - *u;
+}
+
+// K6: out[z][i] = b_z^i for i < n and z < count (count <= MAX_BASES), b_z
+// the word at bases[z]; with ext set, the extension powers of (bases[z][0],
+// bases[z][comps[z]]) into out[z]'s pairs.
+int qzk_field_powers(int ext, int count, const uint64_t* const* bases, const long long* comps,
+                     long long n, uint64_t* out, void* stream) {
+  int u = 0;
+  const int s = qzk_powers_tables(n, &u);
+  if (s < 0 || count < 1 || count > MAX_BASES) return (int)cudaErrorInvalidValue;
+  Bases bs;
+  for (int z = 0; z < MAX_BASES; ++z) {
+    bs.p[z] = z < count ? bases[z] : nullptr;
+    bs.c[z] = z < count && comps != nullptr ? comps[z] : 0;
+  }
+  const size_t bytes = (size_t)((1LL << s) + (1LL << u)) * (ext ? 16 : 8);
+  long long gx = (n + POW_THREADS - 1) / POW_THREADS;
+  const long long cap = 2LL * sm_count() / count > 1 ? 2LL * sm_count() / count : 1;
+  gx = gx < cap ? gx : cap;
+  const dim3 grid((unsigned)gx, (unsigned)count);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ext) {
+    if (bytes > 48 * 1024)
+      cudaFuncSetAttribute(field_powers_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    field_powers_kernel<true><<<grid, POW_THREADS, bytes, st>>>(bs, n, s, u, out);
+  } else {
+    if (bytes > 48 * 1024)
+      cudaFuncSetAttribute(field_powers_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    field_powers_kernel<false><<<grid, POW_THREADS, bytes, st>>>(bs, n, s, u, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,10 @@ tensor it runs the plain version.  There is no switch between the two.
                     ext_add, ext_sub, ext_mul, pow7; the Poseidon gate's
                     round mds_full and mds_partial (plain twins in
                     poseidon_torch.py)
-  K5 field_inverse  inverse, ext_inverse_vec, batch_inverse_axis
-  K6 field_powers   powers_vec, ext_powers
+  K5 field_inverse  inverse, ext_inverse_vec, batch_inverse_axis,
+                    batch_divide_axis
+  K6 field_powers   powers_vec, ext_powers, powers_vec_multi,
+                    ext_powers_multi (several bases in one launch)
   K7 field_reduce   sum_mod, dot_mod, prod_chunks, prefix_prod_exclusive
 
 Operands are int64 tensors of uint64 bit patterns on one device, of any
@@ -47,13 +49,19 @@ from . import poseidon_torch as pt
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 MAX_DIMS = 4
+# field.cu's limits on the card: a batch inversion's lane (BATCH_THREADS
+# * BATCH_WORDS words), a powers launch's bases (MAX_BASES) and powers a
+# base (2^POW_MAX_LOG_N)
+BATCH_MAX_WORDS = 1280
+MAX_BASES = 8
+POW_MAX_N = 1 << 24
 
 # Each kernel family's ops; a family is a key of LAUNCHES.
 FAMILIES = {
     "field_map": ("add", "sub", "neg", "mul", "square", "mul_small", "reduce128", "ext_mul",
                   "pow7", "mds_full", "mds_partial"),
-    "field_inverse": ("inverse", "ext_inverse_vec", "batch_inverse_axis"),
-    "field_powers": ("powers_vec", "ext_powers"),
+    "field_inverse": ("inverse", "ext_inverse_vec", "batch_inverse_axis", "batch_divide_axis"),
+    "field_powers": ("powers_vec", "ext_powers", "powers_vec_multi", "ext_powers_multi"),
     "field_reduce": ("sum_mod", "dot_mod", "prod_chunks", "prefix_prod_exclusive"),
 }
 FAMILY_OF = {op: family for family, ops in FAMILIES.items() for op in ops}
@@ -161,8 +169,9 @@ def bind(lib):
         "qzk_map_path": [i, i, pll, pll, pll, vp, vp, vp],
         "qzk_mds": [i, vp, ll, ll, vp, ll, ll, vp, vp],
         "qzk_field_inverse": [i, vp, pll, ll, i, pll, vp, vp],
-        "qzk_batch_inverse": [vp, pll, ll, i, pll, pll, ll, ll, vp, vp],
-        "qzk_field_powers": [i, vp, ll, ll, vp, vp],
+        "qzk_batch_group": [ll],
+        "qzk_batch_inverse": [vp, pll, ll, vp, pll, ll, i, pll, pll, ll, ll, i, vp, vp],
+        "qzk_field_powers": [i, i, ctypes.POINTER(vp), pll, ll, vp, vp],
         "qzk_sum_plan": [ll, ll, ll, pll],
         "qzk_sum_mod": [vp, pll, ll, vp, pll, ll, i, pll, ll, vp, vp, vp],
         "qzk_prod_chunks": [vp, pll, i, pll, i, ll, ll, ll, vp, vp],
@@ -483,8 +492,9 @@ class LanePlan(NamedTuple):
 
 def lane_plan(op: str, a, axis: int, w=None) -> LanePlan:
     """The launch of `op` (sum_mod, dot_mod with weight w,
-    batch_inverse_axis or prefix_prod_exclusive) along `axis` of `a`:
-    one lane for each index of the other dims."""
+    batch_inverse_axis, batch_divide_axis with numerators w, or
+    prefix_prod_exclusive) along `axis` of `a`: one lane for each index
+    of the other dims."""
     check_operands(a, *([] if w is None else [w]))
     if not 1 <= a.dim() <= MAX_DIMS:
         raise ValueError(f"{op}: expected 1 to {MAX_DIMS} dims, got {tuple(a.shape)}")
@@ -500,6 +510,13 @@ def lane_plan(op: str, a, axis: int, w=None) -> LanePlan:
         o_strides, o_axis = tuple(full[k] for k in rest), full[axis]
     a_strides = tuple(a.stride(k) for k in rest)
     key_strides, operands, axes = (tuple(a.stride()),), [a_strides, o_strides], ()
+    if op == "batch_divide_axis":
+        if tuple(w.shape) != tuple(a.shape):
+            raise ValueError(f"batch_divide_axis: nums of {tuple(w.shape)} and dens of "
+                             f"{tuple(a.shape)} differ in shape")
+        key_strides = (tuple(w.stride()),) + key_strides  # (nums, dens): the call's order
+        operands.append(tuple(w.stride(k) for k in rest))
+        axes = (w.stride(axis),)
     if op == "dot_mod":
         shape, (_, ws) = broadcast(a, w)
         if shape != tuple(a.shape):
@@ -513,17 +530,35 @@ def lane_plan(op: str, a, axis: int, w=None) -> LanePlan:
                     strides, (a.stride(axis), o_axis) + axes, a.shape[axis])
 
 
-def launch_batch_inverse(lib, plan: LanePlan, a, out, stream) -> int:
+def batch_group(lib, k: int) -> int:
+    """log2 of the threads a lane of k words takes in field.cu's batch
+    inversion (qzk_batch_group); raises past BATCH_MAX_WORDS."""
+    log_g = lib.qzk_batch_group(k)
+    if log_g < 0:
+        raise ValueError(f"batch inversion along a lane of {k} words; the kernel takes at "
+                         f"most {BATCH_MAX_WORDS}")
+    return log_g
+
+
+def launch_batch_inverse(lib, plan: LanePlan, a, out, stream, nums=None, log_g=None) -> int:
+    """K5's batch inversion of `a` along the plan's lanes, or with nums
+    batch_divide_axis; log_g: log2 of the threads a lane (by default
+    field.cu's qzk_batch_group)."""
+    if log_g is None:
+        log_g = batch_group(lib, plan.n)
+    div = nums is not None
     _check(lib.qzk_batch_inverse(a.data_ptr(), _arr(plan.strides[0]), plan.axis[0],
-                                 len(plan.dims), _arr(plan.dims), _arr(plan.strides[1]),
-                                 plan.axis[1], plan.n, out.data_ptr(), stream),
-           "qzk_batch_inverse")
+                                 nums.data_ptr() if div else None,
+                                 _arr(plan.strides[2] if div else ()),
+                                 plan.axis[2] if div else 0, len(plan.dims), _arr(plan.dims),
+                                 _arr(plan.strides[1]), plan.axis[1], plan.n, log_g,
+                                 out.data_ptr(), stream), "qzk_batch_inverse")
     return 1
 
 
 def batch_inverse_axis(a, axis: int = 0):
-    """Montgomery batch inversion along one short axis, one lane a
-    thread; a zero in a lane zeroes the lane."""
+    """Montgomery batch inversion along one short axis, a group of
+    threads a lane; a zero in a lane zeroes the lane."""
     plan = lane_plan("batch_inverse_axis", a, axis)
     if a.device.type == "cpu":
         return gt.batch_inverse_axis(a, axis)
@@ -531,43 +566,69 @@ def batch_inverse_axis(a, axis: int = 0):
                    lambda lib, out, s: launch_batch_inverse(lib, plan, a, out, s))
 
 
+def batch_divide_axis(nums, dens, axis: int = 0):
+    """nums times the batch inverse of dens along one short axis (nums
+    and dens of one shape), in one launch."""
+    plan = lane_plan("batch_divide_axis", dens, axis, nums)
+    if dens.device.type == "cpu":
+        return gt.batch_divide_axis(nums, dens, axis)
+    return _launch(plan.key, plan.out_shape, dens.device,
+                   lambda lib, out, s: launch_batch_inverse(lib, plan, dens, out, s, nums))
+
+
 # -- K6 -------------------------------------------------------------------------
+
+_SINGLE_BASE = {"powers_vec_multi": "powers_vec", "ext_powers_multi": "ext_powers"}
 
 
 class PowersPlan(NamedTuple):
     key: tuple
     out_shape: tuple
-    comp: int  # the stride between an extension base's two words
+    comps: tuple  # per base: the stride between an extension base's two words
 
 
-def powers_plan(op: str, b, n: int) -> PowersPlan:
-    """powers_vec (b one element) or ext_powers (b two), n powers."""
-    check_operands(b)
-    ext = op == "ext_powers"
-    if b.numel() != (2 if ext else 1):
-        raise ValueError(f"{op}: expected {'a (2,)' if ext else 'a one-element'} tensor, "
-                         f"got {tuple(b.shape)}")
+def powers_plan(op: str, bases, n: int) -> PowersPlan:
+    """powers_vec or ext_powers of one base (b one element, or two), or
+    their multi-base forms over a sequence of such bases (out (B, n) or
+    (B, n, 2)); n powers a base."""
+    multi = op in _SINGLE_BASE
+    ext = _SINGLE_BASE.get(op, op) == "ext_powers"
+    bases = tuple(bases) if multi else (bases,)
+    if not 1 <= len(bases) <= MAX_BASES:
+        raise ValueError(f"{op}: {len(bases)} bases; a launch takes 1 to {MAX_BASES}")
+    check_operands(*bases)
+    for b in bases:
+        if b.numel() != (2 if ext else 1):
+            raise ValueError(f"{op}: expected {'(2,) bases' if ext else 'one-element bases'}, "
+                             f"got {tuple(b.shape)}")
     if n < 0:
         raise ValueError(f"{op}: n = {n}")
-    cb = b.reshape(2).stride(0) if ext else 0
-    out_shape = (n, 2) if ext else (n,)
-    return PowersPlan((op, out_shape, ((0, cb) if ext else (0,),), None), out_shape, cb)
+    comps = tuple(b.reshape(2).stride(0) if ext else 0 for b in bases)
+    out_shape = ((len(bases),) if multi else ()) + ((n, 2) if ext else (n,))
+    key_strides = tuple((0, c) if ext else (0,) for c in comps)
+    return PowersPlan((op, out_shape, key_strides, None), out_shape, comps)
 
 
-def launch_powers(lib, plan: PowersPlan, b, out, stream) -> int:
-    ext = plan.key[0] == "ext_powers"
-    base = b.reshape(2) if ext else b.reshape(1)
-    _check(lib.qzk_field_powers(int(ext), base.data_ptr(), plan.comp, plan.out_shape[0],
+def launch_powers(lib, plan: PowersPlan, bases, out, stream) -> int:
+    """K6 for `plan` over its bases (a sequence, one for the single-base
+    ops)."""
+    ext = plan.key[0] in ("ext_powers", "ext_powers_multi")
+    n = plan.out_shape[-2] if ext else plan.out_shape[-1]
+    if n > POW_MAX_N:
+        raise ValueError(f"{plan.key[0]}: {n} powers; the kernel takes at most {POW_MAX_N}")
+    ptrs = (ctypes.c_void_p * len(bases))(*[b.data_ptr() for b in bases])
+    _check(lib.qzk_field_powers(int(ext), len(bases), ptrs, _arr(plan.comps), n,
                                 out.data_ptr(), stream), "qzk_field_powers")
     return 1
 
 
-def _powers(op: str, plain, b, n: int):
-    plan = powers_plan(op, b, n)
-    if b.device.type == "cpu":
+def _powers(op: str, plain, bases, n: int):
+    plan = powers_plan(op, bases, n)
+    seq = tuple(bases) if op in _SINGLE_BASE else (bases,)
+    if seq[0].device.type == "cpu":
         return plain()
-    return _launch(plan.key, plan.out_shape, b.device,
-                   lambda lib, out, s: launch_powers(lib, plan, b, out, s))
+    return _launch(plan.key, plan.out_shape, seq[0].device,
+                   lambda lib, out, s: launch_powers(lib, plan, seq, out, s))
 
 
 def powers_vec(b, n: int):
@@ -578,6 +639,20 @@ def powers_vec(b, n: int):
 def ext_powers(z, n: int):
     """[z^0 .. z^(n-1)] as (n, 2) for a (2,) extension scalar z."""
     return _powers("ext_powers", lambda: gt.ext_powers(z, n), z, n)
+
+
+def powers_vec_multi(bases, n: int):
+    """(B, n): powers_vec of each one-element base of the sequence
+    `bases` (a tensor's rows, too), in one launch."""
+    bases = tuple(bases)
+    return _powers("powers_vec_multi", lambda: gt.powers_vec_multi(bases, n), bases, n)
+
+
+def ext_powers_multi(bases, n: int):
+    """(B, n, 2): ext_powers of each (2,) base of the sequence `bases`,
+    in one launch."""
+    bases = tuple(bases)
+    return _powers("ext_powers_multi", lambda: gt.ext_powers_multi(bases, n), bases, n)
 
 
 # -- K7 -------------------------------------------------------------------------
@@ -715,6 +790,12 @@ def call_of(key: tuple, make):
         return fn, (make(1).reshape(()), shape[0])
     if op == "ext_powers":
         return fn, (view(strides[0][1:], (2,)), shape[0])
+    if op == "powers_vec_multi":
+        return fn, (tuple(make(1).reshape(()) for _ in strides), shape[1])
+    if op == "ext_powers_multi":
+        return fn, (tuple(view(st[1:], (2,)) for st in strides), shape[1])
+    if op == "batch_divide_axis":
+        return fn, (view(strides[0], shape), view(strides[1], shape), extra)
     if op in ("sum_mod", "batch_inverse_axis"):
         return fn, (view(strides[0], shape), extra)
     if op == "prefix_prod_exclusive":

@@ -194,6 +194,17 @@ def batch_inverse_axis(a, axis: int = 0):
     return torch.movedim(torch.stack(outs), 0, axis)
 
 
+def batch_divide_axis(nums, dens, axis: int = 0):
+    """nums times the batch inverse of dens along one axis (the
+    permutation argument's ratios)."""
+    return mul(nums, batch_inverse_axis(dens, axis))
+
+
+def powers_vec_multi(bases, n: int):
+    """(B, n): powers_vec of each of B one-element bases."""
+    return torch.stack([powers_vec(b, n) for b in bases])
+
+
 def sum_mod(a, axis: int = -1):
     """Modular sum along an axis: log2(n) halving adds."""
     a = torch.movedim(a, axis, -1)
@@ -281,3 +292,8 @@ def ext_powers(z, n: int):
         pows = torch.cat([pows, ext_mul(pows, z_len.expand(pows.shape))])
         z_len = ext_mul(z_len, z_len)
     return pows[:n]
+
+
+def ext_powers_multi(bases, n: int):
+    """(B, n, 2): ext_powers of each of B (2,) extension bases."""
+    return torch.stack([ext_powers(z, n) for z in bases])

@@ -199,7 +199,7 @@ class ShardedProverContext:
                 beta, gamma = betas_b[i][c], gammas_b[i][c]
                 nums = gt.add(gt.add(w_routed[i], gt.mul(beta, self.id_enc[i])), gamma)
                 dens = gt.add(gt.add(w_routed[i], gt.mul(beta, self.sigma_enc[i])), gamma)
-                ratios = gt.mul(nums, gt.batch_inverse_axis(dens, axis=1))
+                ratios = gt.batch_divide_axis(nums, dens, axis=1)
                 chunk_prods = chunk_products(ratios, common)
                 row_ratio = chunk_prods[0]
                 for k in range(1, common.num_chunks):
@@ -307,8 +307,7 @@ class ShardedProverContext:
 
         out = [[] for _ in range(5)]
         for i, dev in enumerate(self.mesh.devices):
-            pows = gt.ext_powers(gt.from_u64(zeta, dev), N)
-            pows_r = gt.ext_powers(gt.from_u64(zeta_right, dev), N)
+            pows, pows_r = gt.ext_powers_multi(gt.from_u64(np.stack([zeta, zeta_right]), dev), N)
             for k, (coeffs, p) in enumerate(((pre_c[i], pows), (wires_c[i], pows),
                                              (zs_c[i], pows), (q_c[i], pows),
                                              (zs_c[i], pows_r))):

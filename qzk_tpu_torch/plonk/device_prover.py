@@ -445,7 +445,7 @@ class DeviceProverContext:
             beta, gamma = betas[c], gammas[c]
             nums = gt.add(gt.add(w_routed, gt.mul(beta, self.id_enc)), gamma)
             dens = gt.add(gt.add(w_routed, gt.mul(beta, self.sigma_enc)), gamma)
-            ratios = gt.mul(nums, gt.batch_inverse_axis(dens, axis=1))
+            ratios = gt.batch_divide_axis(nums, dens, axis=1)
             chunk_prods = chunk_products(ratios, common)
             row_ratio = chunk_prods[0]
             for k in range(1, common.num_chunks):
@@ -491,8 +491,7 @@ class DeviceProverContext:
 
     def openings_stage(self, wires_coeffs, zs_coeffs, quotient_coeffs, zeta, zeta_right):
         N = self.common.degree
-        pows = gt.ext_powers(zeta, N)
-        pows_r = gt.ext_powers(zeta_right, N)
+        pows, pows_r = gt.ext_powers_multi((zeta, zeta_right), N)
 
         def eval_polys_ext(coeffs, p):
             c0 = gt.dot_mod(coeffs, p[None, :, 0], axis=1)
@@ -683,7 +682,7 @@ class DeviceProverContext:
         ch.observe_elements(opened[4])
         fri_alpha = ch.get_extension_challenge()
         apows_all = gt.ext_powers(fri_alpha, zeta_claims.shape[0])
-        apows_zs = gt.ext_powers(fri_alpha, opened[4].shape[0])
+        apows_zs = apows_all[: opened[4].shape[0]]  # the same powers, fewer
         G = self.fri_input_stage(
             w_lde, z_lde, q_lde, apows_all, _ext_reduce(zeta_claims, apows_all), zeta,
             apows_zs, _ext_reduce(opened[4], apows_zs), zeta_right)

@@ -141,6 +141,10 @@ def eval_vanishing_torch(
         t = gt.prod_chunks(vals, 0, chunk)
         return [t[k] for k in range(common.num_chunks)]
 
+    # every challenge's terms: the gate terms, a permutation term a chunk
+    # and the L1 term; the alphas' powers in one launch
+    n_terms = (0 if gate_terms is None else gate_terms.shape[0]) + common.num_chunks + 1
+    apows_all = gt.powers_vec_multi(alphas, n_terms)
     out = []
     for c in range(cfg.num_challenges):
         beta, gamma = betas[c], gammas[c]
@@ -162,6 +166,5 @@ def eval_vanishing_torch(
         terms = (
             torch.cat([gate_terms, tail]) if gate_terms is not None else tail
         )
-        apows = gt.powers_vec(alphas[c], terms.shape[0])
-        out.append(gt.dot_mod(terms, apows[:, None], axis=0))
+        out.append(gt.dot_mod(terms, apows_all[c][:, None], axis=0))
     return out

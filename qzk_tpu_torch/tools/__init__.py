@@ -1,1 +1,2 @@
-"""Command-line tools of the port: the chunk-cache builder (host only) and the prove profiler."""
+"""Command-line tools of the port: the chunk-cache builder (host only), the
+prove profiler and the dummy-proof exporter."""

@@ -19,8 +19,12 @@ the round), on random canonical values with the EDGES values planted,
 and on any 64-bit words where the op takes them: the call sites'
 broadcast and stride patterns, each through the K4 path it should take
 (the general one, the fast one, the fast one with 16-byte accesses and
-an odd tail), pow7 and the round, a zero lane in batch_inverse_axis,
-inverse(0) and ext_inverse_vec of (0, 0), sum_mod and dot_mod at n = 0,
+an odd tail), pow7 and the round, batch_inverse_axis and
+batch_divide_axis at k = 1, 2, odd, below and above a lane's thread
+count and 80, along either axis and transposed, a zero lane beside an
+intact one in the same block, inverse(0) and ext_inverse_vec of (0, 0),
+powers of one base and of two in a launch around the tables' sizes and
+at 8192, sum_mod and dot_mod at n = 0,
 1, 2, odd n, along either axis (tiled along axis 0 over a lane count
 that is no multiple of the tile) and past one block's shared memory,
 prod_chunks with a ragged run and runs of one word, and
@@ -66,7 +70,7 @@ def host_field(tmp_path_factory):
                           r"\1* \2 = reinterpret_cast<\1*>(hostsim::smem.data());", src)
     src, n_launch = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                             r"hostsim::launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert "<<<" not in src and "__shared__" not in src and (n_smem, n_launch) == (3, 15)
+    assert "<<<" not in src and "__shared__" not in src and (n_smem, n_launch) == (5, 16)
     (d / "field_host.cpp").write_text(_translate(src))
     so = d / "field_host.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(d),
@@ -255,25 +259,78 @@ def test_host_field_ext_inverse_vec(host_field, rng, layout):
     _same(got, gj.ext_inverse_vec(_j(a)))
 
 
-@pytest.mark.parametrize("shape,axis,transpose", [
-    ((40, 10), 1, False),  # (N, 80) along axis 1, as zs_stage
-    ((40, 10), 0, False),
-    ((10, 40), 1, True),   # a transposed input
-    ((2, 5, 3, 4), 2, False),
-    ((6, 1), 1, False),
-])
-def test_host_field_batch_inverse(host_field, rng, shape, axis, transpose):
+def _lane(a, axis, lane):
+    """The index of lane `lane` of `a` along `axis` (the kernel's lane
+    order: row-major over the other dims)."""
+    rest = [n for k, n in enumerate(a.shape) if k != axis]
+    coords = [int(c) for c in np.unravel_index(lane, rest)]
+    return tuple(coords[:axis] + [slice(None)] + coords[axis:])
+
+
+# (shape, axis, transposed input, log2 of the threads a lane or None for
+# the kernel's default): k = 1, 2, odd, below G, 80 (the zs stage's (N,
+# 80), 16 threads a lane) and above 2 G; lane counts that are no multiple
+# of a block's lanes; along axis 1, axis 0 and a transposed input
+BATCH_CASES = [
+    ((40, 10), 1, False, None),
+    ((40, 10), 0, False, None),
+    ((10, 40), 1, True, None),
+    ((2, 5, 3, 4), 2, False, None),
+    ((6, 1), 1, False, None),
+    ((37, 2), 1, False, None),
+    ((21, 7), 1, False, 4),
+    ((5, 37), 1, False, None),
+    ((33, 80), 1, False, None),
+    ((80, 33), 0, False, None),
+    ((80, 33), 1, True, None),
+    ((19, 45), 1, False, 4),
+]
+
+
+@pytest.mark.parametrize("op", ["batch_inverse_axis", "batch_divide_axis"])
+@pytest.mark.parametrize("shape,axis,transpose,log_g", BATCH_CASES)
+def test_host_field_batch_inverse(host_field, rng, shape, axis, transpose, log_g, op):
+    """Bit for bit against the plain version and the JAX package's; a
+    zero in one lane zeroes that lane, and the neighbouring lane of the
+    same block keeps its inverses."""
     a = _words(rng, shape)
     if transpose:
         a = a.T
-    zero = [0] * a.dim()
-    zero[axis] = a.shape[axis] - 1
-    a[tuple(zero)] = 0  # a zero in lane 0
-    plan = gc.lane_plan("batch_inverse_axis", a, axis)
-    got = _run(host_field, gc.launch_batch_inverse, plan, a)
-    _same(got, gt.to_u64(gt.batch_inverse_axis(a, axis)))
-    _same(got, gj.batch_inverse_axis(_j(a), axis))
-    assert (gt.to_u64(got.movedim(axis, -1).reshape(-1, a.shape[axis])[0]) == 0).all()
+    k = a.shape[axis]
+    lanes = a.numel() // k
+    zl = max(0, lanes // 2 - 1)
+    a[_lane(a, axis, zl)][k - 1] = 0  # a zero in lane zl
+    a[_lane(a, axis, zl + 1)] = gt.from_u64(rng.integers(1, P, size=k, dtype=np.uint64))
+    nums = _words(rng, tuple(a.shape), False) if op == "batch_divide_axis" else None
+    plan = gc.lane_plan(op, a, axis, nums)
+    got = torch.empty(plan.out_shape, dtype=torch.int64)
+    assert gc.launch_batch_inverse(host_field, plan, a, got, None, nums, log_g) == 1
+    if nums is None:
+        _same(got, gt.to_u64(gt.batch_inverse_axis(a, axis)))
+        _same(got, gj.batch_inverse_axis(_j(a), axis))
+        one = torch.ones(k, dtype=torch.int64)
+    else:
+        _same(got, gt.to_u64(gt.batch_divide_axis(nums, a, axis)))
+        _same(got, gj.mul(_j(nums), gj.batch_inverse_axis(_j(a), axis)))
+        one = nums[_lane(nums, axis, zl + 1)]
+    assert (gt.to_u64(got[_lane(got, axis, zl)]) == 0).all()
+    back = gt.mul(got[_lane(got, axis, zl + 1)], a[_lane(a, axis, zl + 1)])
+    _same(back, gt.to_u64(gt.mul(one, torch.ones_like(one))))  # nums' canonical words
+
+
+def test_host_field_batch_group(host_field):
+    """The threads a lane: the fewest that leave a thread at most five
+    words (16 for the zs stage's k = 80); lanes past 256 threads' 1280
+    words raise, and so does a lane of more words than its threads hold."""
+    assert [gc.batch_group(host_field, k) for k in (1, 5, 6, 37, 80, 81, 1280)] == [
+        0, 0, 1, 3, 4, 5, 8]
+    with pytest.raises(ValueError, match="1280"):
+        gc.batch_group(host_field, gc.BATCH_MAX_WORDS + 1)
+    a = _words(np.random.default_rng(1), (4, 6))
+    plan = gc.lane_plan("batch_inverse_axis", a, 1)
+    with pytest.raises(RuntimeError, match="qzk_batch_inverse"):  # 11 words on one thread
+        gc.launch_batch_inverse(host_field, plan._replace(n=11), a,
+                                torch.empty((4, 6), dtype=torch.int64), None, log_g=0)
 
 
 # -- K6 -------------------------------------------------------------------------
@@ -284,7 +341,7 @@ def test_host_field_batch_inverse(host_field, rng, shape, axis, transpose):
 def test_host_field_powers_vec(host_field, n, base):
     b = gt.from_u64(np.array([5, base], dtype=np.uint64))[1]  # 0-d, at an offset
     plan = gc.powers_plan("powers_vec", b, n)
-    got = _run(host_field, gc.launch_powers, plan, b)
+    got = _run(host_field, gc.launch_powers, plan, (b,))
     _same(got, gt.to_u64(gt.powers_vec(b, n)))
     _same(got, gj.powers_vec(_j(b), n))
 
@@ -294,9 +351,31 @@ def test_host_field_powers_vec(host_field, n, base):
 def test_host_field_ext_powers(host_field, rng, n, layout):
     z = _words(rng, (2,), False) if layout == "contiguous" else _words(rng, (2, 3))[:, 1]
     plan = gc.powers_plan("ext_powers", z, n)
-    got = _run(host_field, gc.launch_powers, plan, z)
+    got = _run(host_field, gc.launch_powers, plan, (z,))
     _same(got, gt.to_u64(gt.ext_powers(z, n)))
     _same(got, gj.ext_powers(_j(z), n))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 127, 129, 255, 257, 8192])
+@pytest.mark.parametrize("ext", [False, True], ids=["base", "ext"])
+@pytest.mark.parametrize("count", [1, 2])
+def test_host_field_powers_multi(host_field, rng, n, ext, count):
+    """Several bases in one launch (the vanishing's alphas, zeta and g
+    zeta): n around the tables' sizes (2^s +- 1) and the openings' 8192,
+    bases at an offset and non-canonical words among them."""
+    if ext:
+        bases = tuple(_words(rng, (2, 3), False)[:, 1 + z % 2] for z in range(count))
+        op, plain, jax_one = "ext_powers_multi", gt.ext_powers, gj.ext_powers
+    else:
+        bases = tuple(_words(rng, (3,), False)[1 + z] for z in range(count))
+        op, plain, jax_one = "powers_vec_multi", gt.powers_vec, gj.powers_vec
+    plan = gc.powers_plan(op, bases, n)
+    got = _run(host_field, gc.launch_powers, plan, bases)
+    assert got.shape == (count, n, 2) if ext else (count, n)
+    _same(got, gt.to_u64(getattr(gt, op)(bases, n)))
+    for z, b in enumerate(bases):
+        _same(got[z], gt.to_u64(plain(b, n)))
+        _same(got[z], jax_one(_j(b), n))
 
 
 # -- K7 -------------------------------------------------------------------------

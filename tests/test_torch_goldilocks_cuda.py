@@ -41,10 +41,12 @@ def _calls(rng):
         ("sum_mod", (a, -1)), ("prefix_prod_exclusive", (b,)),
         ("pow7", (a.T,)), ("mds_full", (x,)), ("mds_partial", (b, x)),
         ("dot_mod", (a, b, 1)), ("dot_mod", (a, a[:, :1], 0)), ("prod_chunks", (a, 1, 3)),
+        ("batch_divide_axis", (_words(rng, (6, 8)), a, 1)),
+        ("powers_vec_multi", ((b[3], b[5]), 9)), ("ext_powers_multi", ((f, e[2]), 7)),
     ]
 
 
-@pytest.mark.parametrize("i", range(24))
+@pytest.mark.parametrize("i", range(27))
 def test_cpu_tensors_take_the_plain_version(rng, i):
     gc.reset_launches()
     name, args = _calls(rng)[i]
@@ -109,6 +111,32 @@ def test_lane_plans():
         ("prod_chunks", (80, 64), ((64, 1),), (0, 7)), (12, 64), (448, 1), 64, 80)
     plan = gc.chunk_plan(torch.zeros((32, 80), dtype=torch.int64), -1, 7)
     assert (plan.out_shape, plan.strides, plan.axis, plan.a_axis) == ((32, 12), (80, 7), 1, 1)
+    # batch_divide_axis: the zs stage's (N, 80) nums and dens along axis 1,
+    # and a transposed dens beside contiguous nums
+    nums, dens = torch.zeros((40, 80), dtype=torch.int64), torch.zeros((40, 80), dtype=torch.int64)
+    plan = gc.lane_plan("batch_divide_axis", dens, 1, nums)
+    assert (plan.key, plan.out_shape, plan.dims, plan.strides, plan.axis, plan.n) == (
+        ("batch_divide_axis", (40, 80), ((80, 1), (80, 1)), 1), (40, 80), [40],
+        [[80], [80], [80]], (1, 1, 1), 80)
+    plan = gc.lane_plan("batch_divide_axis", torch.zeros((80, 40), dtype=torch.int64).T, 1,
+                        nums)
+    assert (plan.key[2], plan.strides, plan.axis) == (((80, 1), (1, 40)), [[1], [80], [80]],
+                                                      (40, 1, 1))
+
+
+def test_powers_plans():
+    """One base, and several in one launch: the key carries each base's
+    strides (a 0-d base (0,), an extension base (0, its component
+    stride)), the output a base axis."""
+    b, z = torch.zeros(3, dtype=torch.int64), torch.zeros((2, 3), dtype=torch.int64)
+    assert gc.powers_plan("powers_vec", b[1], 9).key == ("powers_vec", (9,), ((0,),), None)
+    plan = gc.powers_plan("powers_vec_multi", (b[0], b[2]), 9)
+    assert (plan.key, plan.comps) == (("powers_vec_multi", (2, 9), ((0,), (0,)), None), (0, 0))
+    plan = gc.powers_plan("ext_powers_multi", (z[:, 1], torch.zeros(2, dtype=torch.int64)), 5)
+    assert (plan.key, plan.out_shape, plan.comps) == (
+        ("ext_powers_multi", (2, 5, 2), ((0, 3), (0, 1)), None), (2, 5, 2), (3, 1))
+    plan = gc.powers_plan("powers_vec_multi", torch.zeros(2, dtype=torch.int64), 4)  # rows
+    assert plan.out_shape == (2, 4)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -140,6 +168,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gc.mds_full(a)
     with pytest.raises(ValueError, match="row 0"):
         gc.mds_partial(a[0], torch.zeros((12, 4), dtype=torch.int64))
+    with pytest.raises(ValueError, match="differ in shape"):
+        gc.batch_divide_axis(a, a[:, :2], 1)
+    with pytest.raises(ValueError, match="differ in shape"):
+        gc.batch_divide_axis(a[None], a, 1)
+    with pytest.raises(ValueError, match="one-element bases"):
+        gc.powers_vec_multi((a[0, 0], a[0]), 4)
+    with pytest.raises(ValueError, match="\\(2,\\) bases"):
+        gc.ext_powers_multi((a[0, :2], a[0]), 4)
+    with pytest.raises(ValueError, match="bases; a launch takes 1 to 8"):
+        gc.powers_vec_multi((), 4)
+    with pytest.raises(ValueError, match="bases; a launch takes 1 to 8"):
+        gc.powers_vec_multi(torch.zeros(9, dtype=torch.int64), 4)
+    with pytest.raises(TypeError, match="tensor"):
+        gc.powers_vec_multi((a[0, 0], 3), 4)
 
 
 def test_recorded_launches_count_at_each_replay():
@@ -163,8 +205,10 @@ def _key(name, args):
         return gc.lane_plan(name, *args).key
     if name == "prefix_prod_exclusive":
         return gc.lane_plan(name, args[0], 0).key
-    if name in ("powers_vec", "ext_powers"):
+    if name in ("powers_vec", "ext_powers", "powers_vec_multi", "ext_powers_multi"):
         return gc.powers_plan(name, *args).key
+    if name == "batch_divide_axis":
+        return gc.lane_plan(name, args[1], args[2], args[0]).key
     if name == "mul_small":
         return gc.map_plan(name, args[0], c=args[1]).key
     if name == "dot_mod":

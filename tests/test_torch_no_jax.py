@@ -51,6 +51,7 @@ def test_package_and_chip_smoke_import_no_jax(tmp_path):
         "qzk_tpu_torch.benches.verify",
         "qzk_tpu_torch.plonk.device_prover",
         "qzk_tpu_torch.tools.profile_prover",
+        "qzk_tpu_torch.tools.export_dummy_proof",
         "qzk_tpu_torch.parallel",
         "qzk_tpu_torch.parallel.sharded",
         "qzk_tpu_torch.parallel.kernels",

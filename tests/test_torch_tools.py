@@ -114,3 +114,32 @@ def test_import_runs_nothing():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert "IMPORT_OK" in res.stdout
+
+
+@pytest.mark.parametrize("outdir", [None, "nested/bins"], ids=["default", "given"])
+def test_export_dummy_proof_writes_both_files(tmp_path, monkeypatch, outdir):
+    """The port's dummy-proof tool (qzk_tpu_torch/tools/export_dummy_proof.py)
+    with the prove stubbed: one prove of synthetic_circuit_inputs() under
+    CircuitConfig() with zero knowledge on, one with it off, each written
+    under its file name into the given directory (generated-bins under
+    the working directory by default)."""
+    from qzk_tpu_torch.models.wormhole.fixtures import synthetic_circuit_inputs
+    from qzk_tpu_torch.plonk.config import CircuitConfig
+    from qzk_tpu_torch.tools import export_dummy_proof as tool
+
+    seen = []
+
+    def fake_prove(config, inputs, device):
+        assert inputs == synthetic_circuit_inputs()
+        seen.append((config, device))
+        return b"zk proof" if config.zero_knowledge else b"non-zk proof"
+
+    monkeypatch.setattr(tool, "prove_bytes", fake_prove)
+    monkeypatch.chdir(tmp_path)
+    tool.main(([] if outdir is None else [outdir]) + ["--device", "cpu"])
+    out = tmp_path / (outdir or "generated-bins")
+    assert seen == [(CircuitConfig().with_zero_knowledge(True), "cpu"),
+                    (CircuitConfig().with_zero_knowledge(False), "cpu")]
+    assert sorted(p.name for p in out.iterdir()) == ["dummy_proof.bin", "dummy_proof_zk.bin"]
+    assert (out / "dummy_proof_zk.bin").read_bytes() == b"zk proof"
+    assert (out / "dummy_proof.bin").read_bytes() == b"non-zk proof"
