@@ -32,6 +32,7 @@ each package finds only its own blobs, and refuses the other's.
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import os
 import pickle
 import struct
@@ -48,6 +49,7 @@ from ...plonk.circuit_data import CircuitData, VerifierCircuitData
 from ...plonk.config import CircuitConfig
 from ...plonk.proof import ProofWithPublicInputs
 from ...plonk.witness import PartialWitness
+from ...utils import spans
 from ...utils.device import resolve_device
 from ..wormhole.inputs import PublicCircuitInputs
 
@@ -203,16 +205,17 @@ def _build_chunk_circuit_uncached(common, branching: int) -> _ChunkCircuit:
 def _prove_chunk(
     circuit: _ChunkCircuit, chunk: list, verifier_only, device=None, timer=None
 ) -> AggregatedProof:
-    """Fill the chunk circuit's witness from the child proofs and prove
-    it on `device`, with `timer` (a plonk.prover.PhaseTimer) marking the
-    prove's phases when given."""
+    """Fill the chunk circuit's witness from the child proofs (the span
+    "aggregation.fill") and prove it on `device`, with `timer` (a
+    plonk.prover.PhaseTimer) marking the prove's phases when given."""
     pw = PartialWitness()
-    rec.set_verifier_data_target(
-        pw, circuit.verifier_data_target, verifier_only
-    )
-    assert len(chunk) == len(circuit.proof_targets)
-    for pt, proof in zip(circuit.proof_targets, chunk):
-        rec.set_proof_with_pis_target(pw, pt, proof)
+    with spans.span("aggregation.fill"):
+        rec.set_verifier_data_target(
+            pw, circuit.verifier_data_target, verifier_only
+        )
+        assert len(chunk) == len(circuit.proof_targets)
+        for pt, proof in zip(circuit.proof_targets, chunk):
+            rec.set_proof_with_pis_target(pw, pt, proof)
     proof = circuit.data.prove(pw, device=device, timer=timer)
     return AggregatedProof(proof=proof, circuit_data=circuit.data)
 
@@ -245,53 +248,65 @@ def _chunk_devices(n_chunks: int, device: torch.device) -> list:
 
 def aggregate_level(
     proofs: list, common, verifier_only, config: TreeAggregationConfig,
-    device=None, timer=None,
+    device=None, timer=None, level: int = 1,
 ) -> list:
-    """One tree level: chunked recursion proofs (tree.rs:79-103).
-    Builds one circuit per chunk size occurring at this level; chunks
-    prove concurrently across cards when more than one is attached, each
-    on the card it is given.  `timer` marks the phases of each chunk
-    prove in turn, and needs the sequential path."""
+    """One tree level (level 1 proves the leaves): chunked recursion
+    proofs (tree.rs:79-103).  Builds one circuit per chunk size
+    occurring at this level; chunks prove concurrently across cards
+    when more than one is attached, each on the card it is given.  The
+    level is the span "aggregation.level", each chunk prove the span
+    "aggregation.chunk" (utils/spans.py), when `timer` is given or a
+    request is open.  On the sequential path `timer` marks the phases of
+    each chunk prove in turn; chunks that fan out record their spans in
+    the worker threads and mark nothing."""
     dev = resolve_device(device)
     b = config.tree_branching_factor
     chunks = [proofs[i : i + b] for i in range(0, len(proofs), b)]
-    circuits: dict[int, _ChunkCircuit] = {}
-    for chunk in chunks:
-        size = len(chunk)
-        if size not in circuits:
-            circuits[size] = build_chunk_circuit(common, size)
-    workers = _agg_workers(len(chunks), dev)
-    if workers <= 1:
-        return [
-            _prove_chunk(circuits[len(c)], c, verifier_only, dev, timer)
-            for c in chunks
-        ]
-    if timer is not None:
-        raise ValueError("a PhaseTimer times chunk proves one at a time")
-    devices = _chunk_devices(len(chunks), dev)
+    with spans.span("aggregation.level", timer=timer, level=level, chunks=len(chunks)):
+        circuits: dict[int, _ChunkCircuit] = {}
+        for chunk in chunks:
+            size = len(chunk)
+            if size not in circuits:
+                circuits[size] = build_chunk_circuit(common, size)
+        workers = _agg_workers(len(chunks), dev)
+        if workers <= 1:
+            out = []
+            for i, c in enumerate(chunks):
+                with spans.span("aggregation.chunk", level=level, chunk=i, card=dev):
+                    out.append(_prove_chunk(circuits[len(c)], c, verifier_only, dev, timer))
+            return out
+        devices = _chunk_devices(len(chunks), dev)
 
-    def prove_on(i_chunk):
-        i, chunk = i_chunk
-        return _prove_chunk(circuits[len(chunk)], chunk, verifier_only, devices[i])
+        def prove_on(i, chunk):
+            with spans.span("aggregation.chunk", level=level, chunk=i, card=devices[i]):
+                return _prove_chunk(circuits[len(chunk)], chunk, verifier_only, devices[i])
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(prove_on, enumerate(chunks)))
+        # each task in a copy of this thread's context: its spans join
+        # the open request
+        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+            futures = [ex.submit(contextvars.copy_context().run, prove_on, i, chunk)
+                       for i, chunk in enumerate(chunks)]
+            return [f.result() for f in futures]
 
 
 def aggregate_to_tree(
     leaf_proofs: list, common, verifier_only, config: TreeAggregationConfig,
     device=None, timer=None,
 ) -> AggregatedProof:
-    """tree.rs:55-77: aggregate level by level until one proof remains."""
+    """tree.rs:55-77: aggregate level by level until one proof remains;
+    the span "aggregate" when `timer` is given or a request is open."""
     dev = resolve_device(device)
-    proofs = aggregate_level(leaf_proofs, common, verifier_only, config, dev, timer)
-    while len(proofs) > 1:
-        level_common = proofs[0].circuit_data.common
-        level_vo = proofs[0].circuit_data.verifier_only
-        to_aggregate = [p.proof for p in proofs]
-        proofs = aggregate_level(
-            to_aggregate, level_common, level_vo, config, dev, timer
-        )
+    with spans.span("aggregate", timer=timer):
+        proofs = aggregate_level(leaf_proofs, common, verifier_only, config, dev, timer)
+        level = 1
+        while len(proofs) > 1:
+            level += 1
+            level_common = proofs[0].circuit_data.common
+            level_vo = proofs[0].circuit_data.verifier_only
+            to_aggregate = [p.proof for p in proofs]
+            proofs = aggregate_level(
+                to_aggregate, level_common, level_vo, config, dev, timer, level
+            )
     assert len(proofs) == 1
     return proofs[0]
 

@@ -62,6 +62,7 @@ from ..ops import ntt_fourstep as nfs
 from ..ops import poseidon_cuda as pc
 from ..ops.poseidon import RATE, WIDTH
 from ..ops.transcript import Challenger
+from ..utils import spans
 from . import fri as fri_mod
 from .proof import (
     FriInitialProof,
@@ -900,11 +901,15 @@ def _fused_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
     salted = cfg.zero_knowledge
     # drawn in the staged path's order: wires, zs, quotient
     salts = tuple(fresh_salt(common.lde_size) for _ in range(3))
-    wire_matrix = ctx.assemble_wires(values, blind_block)
-    pi_dev = gt.from_u64(np.asarray(pi_hash, dtype=np.uint64), ctx.device)
-    with ctx.lock:  # the graph's outputs are overwritten by its next replay
-        out, layout = ctx.full_pipeline(salted)(wire_matrix, pi_dev, salts)
-        small = _unpack(gt.to_u64(out["packed"]), layout)
+    with spans.span("fused.upload"):
+        wire_matrix = ctx.assemble_wires(values, blind_block)
+        pi_dev = gt.from_u64(np.asarray(pi_hash, dtype=np.uint64), ctx.device)
+    # the graph's outputs are overwritten by its next replay
+    with spans.locked(ctx.lock, "fused.lock_wait", "fused.lock_held"):
+        with spans.span("fused.replay", device=ctx.device):
+            out, layout = ctx.full_pipeline(salted)(wire_matrix, pi_dev, salts)
+        with spans.span("fused.download"):
+            small = _unpack(gt.to_u64(out["packed"]), layout)
         if not small["tail_ok"]:
             raise ValueError(
                 "constraints unsatisfied: quotient degree overflow "
@@ -939,17 +944,18 @@ def _fused_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
                          for t in range(len(arities))]
             rounds = _rounds_from_data(oracle_data, step_data, nq)
         else:  # no hit in the batch: grind on, re-derive and re-gather
-            pow_witness = ctx.grind_pow(challenger, bits, start=ctx.pow_batch)
-            mark("PoW finalize (host)")
-            indices = challenger.get_indices(nq, common.lde_bits)
-            oracles = [ctx.pre_tree] + [
-                DeviceTree(*out["trees"][n], cap=small[f"cap_{n}"])
-                for n in ("wires", "zs", "quotient")]
-            layer_trees = [DeviceTree(leaves, levels, cap=small[f"cap_layer{t}"])
-                           for t, (leaves, levels, _, _) in enumerate(out["layers"])]
-            rounds = _assemble_query_rounds(
-                [group for *_, group in out["layers"]], arities, oracles,
-                [vals for _, _, vals, _ in out["layers"]], layer_trees, indices)
+            with spans.span("pow.grind"):
+                pow_witness = ctx.grind_pow(challenger, bits, start=ctx.pow_batch)
+                mark("PoW finalize (host)")
+                indices = challenger.get_indices(nq, common.lde_bits)
+                oracles = [ctx.pre_tree] + [
+                    DeviceTree(*out["trees"][n], cap=small[f"cap_{n}"])
+                    for n in ("wires", "zs", "quotient")]
+                layer_trees = [DeviceTree(leaves, levels, cap=small[f"cap_layer{t}"])
+                               for t, (leaves, levels, _, _) in enumerate(out["layers"])]
+                rounds = _assemble_query_rounds(
+                    [group for *_, group in out["layers"]], arities, oracles,
+                    [vals for _, _, vals, _ in out["layers"]], layer_trees, indices)
         mark("FRI queries (in-dispatch gathers)")
 
     proof = Proof(

@@ -38,6 +38,7 @@ import torch
 
 from ..ops import poseidon as pos
 from ..ops import threefry
+from ..utils import spans
 from ..utils.device import resolve_device
 from .proof import ProofWithPublicInputs
 from .witness import run_generators
@@ -93,8 +94,9 @@ def blinding_stream(values: np.ndarray, device):
 
     def _blind_bits(shape):
         nonlocal blind_key
-        blind_key, sub = threefry.split(blind_key)
-        return threefry.random_bits_u64_shr1(sub, shape, device)
+        with spans.span("blinding.draw"):
+            blind_key, sub = threefry.split(blind_key)
+            return threefry.random_bits_u64_shr1(sub, shape, device)
 
     return _blind_bits
 
@@ -102,16 +104,26 @@ def blinding_stream(values: np.ndarray, device):
 def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
           ) -> ProofWithPublicInputs:
     """Prove the circuit for the partial witness `pw` on `device`
-    (CUDA unless the caller passes "cpu"), or over the active mesh."""
+    (CUDA unless the caller passes "cpu"), or over the active mesh.
+    With a `timer`, or inside an open request, the prove is the span
+    "prove" (utils/spans.py) and its phases are spans that end where
+    `timer` is marked."""
     from .. import parallel as _parallel
 
     mesh = _parallel.active_mesh()
     dev = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
+    with spans.span("prove", timer=timer, card=dev) as phases:
+        return _prove(common, prover_only, pw, dev, mesh, phases)
+
+
+def _prove(common, prover_only, pw, dev, mesh, phases) -> ProofWithPublicInputs:
+    """prove() on `dev` (the mesh's first device under a mesh); `phases`
+    marks the prove's phases (None: nothing is recorded)."""
     cfg = common.config
     N = common.degree
     values, _known = run_generators(prover_only.plan, pw)
-    if timer is not None:
-        timer.mark("witness")
+    if phases is not None:
+        phases.mark("witness")
     public_inputs = values[
         prover_only.plan.roots[
             np.asarray(prover_only.public_inputs, dtype=np.int64)
@@ -126,8 +138,8 @@ def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
         # the first split, before any fresh_salt (the split order is
         # part of the deterministic blinding stream)
         blind_block = _blind_bits((N - n_used, cfg.num_wires))
-    if timer is not None and cfg.zero_knowledge:
-        timer.mark("blinding")
+    if phases is not None and cfg.zero_knowledge:
+        phases.mark("blinding")
 
     def fresh_salt(n_leaves):
         """(n_leaves, 4) blinding salt on the prove device, or None
@@ -142,21 +154,21 @@ def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
         if mesh_preconditions_ok(common, mesh):
             return sharded_prove(
                 common, prover_only, values, blind_block, public_inputs, pi_hash,
-                fresh_salt, timer, mesh,
+                fresh_salt, phases, mesh,
             )
         warnings.warn(
             f"circuit (degree {N}) does not satisfy the sharded-prove "
             f"divisibility preconditions for a {mesh.size}-device "
             "mesh; falling back to the single-device pipeline",
             RuntimeWarning,
-            stacklevel=2,
+            stacklevel=3,
         )
 
     from .device_prover import device_prove
 
     return device_prove(
         common, prover_only, values, blind_block, public_inputs, pi_hash,
-        fresh_salt, dev, timer,
+        fresh_salt, dev, phases,
     )
 
 

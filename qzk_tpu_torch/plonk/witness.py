@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops import goldilocks as gl
+from ..utils import spans
 from .builder import BoolTarget, HashOutTarget
 
 
@@ -251,7 +252,12 @@ def run_generators(
     plan: GeneratorBatches, pw: PartialWitness
 ) -> tuple[np.ndarray, np.ndarray]:
     """Execute all generator batches; returns (values, known) arrays
-    indexed by union-find root."""
+    indexed by union-find root.  The span "witness.generators"."""
+    with spans.span("witness.generators"):
+        return _run_generators(plan, pw)
+
+
+def _run_generators(plan: GeneratorBatches, pw: PartialWitness):
     from .gates import poseidon_trace
 
     n = plan.num_targets

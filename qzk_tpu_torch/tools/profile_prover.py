@@ -13,7 +13,10 @@ the chrome trace to DIR/prove_{fused,staged}.json, prints summarize()'s
 table, and one JSON line: the device time by kernel name, the count of
 device events and of kernels, the device's busy time (the union of its
 events' intervals), the window (the ``qzk_prove`` range) and the idle
-share of that window, beside the card's name and power limit.
+share of that window, beside the card's name and power limit; and the
+device's idle gaps named by the innermost program span (utils/spans.py,
+whose spans the profiler records as ``record_function`` ranges) running
+on the host at each gap's midpoint.
 ``--staged`` sets QZK_FUSED=0, the staged pipeline.  ``--circuit
 small`` proves a 2^3-row circuit instead, and ``--device cpu`` runs on
 the CPU (plumbing only: the trace then holds no device lane, and the
@@ -90,12 +93,33 @@ def load_trace(path: str) -> list:
         return json.load(f)["traceEvents"]
 
 
+def idle_by_span(ranges, intervals, w0: float, w1: float) -> dict:
+    """Idle milliseconds of the window [w0, w1] (trace microseconds) by
+    the innermost of `ranges` ((start, end, name), the program's spans)
+    holding each gap's midpoint: the device is idle between the
+    `intervals` it is busy.  A gap inside no range is "outside any
+    span"."""
+    idle = defaultdict(float)
+    prev = w0
+    for s, t in sorted(intervals) + [(w1, w1)]:
+        if s > prev:
+            mid = (s + prev) / 2
+            holding = [r for r in ranges if r[0] <= mid < r[1]]
+            name = max(holding, key=lambda r: (r[0], -r[1]))[2] if holding else \
+                "outside any span"
+            idle[name] += (s - prev) / 1e3
+        prev = max(prev, t)
+    return dict(idle)
+
+
 def summarize(trace_path: str, top: int = 25, out=print) -> dict:
     """The device profile of a chrome trace: device time by kernel name,
-    event and kernel counts, busy time, window and idle share.  The
-    window is the ``qzk_prove`` range when the trace has one, else the
-    span of all its timed events; busy time is the union of the device
-    events' intervals within it."""
+    event and kernel counts, busy time, window and idle share, and the
+    idle time by the innermost program span (idle_by_span; the host's
+    ``user_annotation`` ranges other than the window).  The window is
+    the ``qzk_prove`` range when the trace has one, else the span of all
+    its timed events; busy time is the union of the device events'
+    intervals within it."""
     events = load_trace(trace_path)
     meta = {e["pid"]: e.get("args", {}).get("name", "") for e in events
             if e.get("ph") == "M" and e.get("name") == "process_name"}
@@ -127,6 +151,9 @@ def summarize(trace_path: str, top: int = 25, out=print) -> dict:
     device_ms = sum(ms for _, (ms, _) in rows)
     window_ms = (w1 - w0) / 1e3
     busy_ms = _union_ms(intervals)
+    ranges = [(e["ts"], e["ts"] + e["dur"], e.get("name", "?")) for e in timed
+              if e.get("cat") == "user_annotation" and e.get("name") != WINDOW]
+    idle = sorted(idle_by_span(ranges, intervals, w0, w1).items(), key=lambda kv: -kv[1])
     rec = {
         "window_ms": window_ms,
         "busy_ms": busy_ms,
@@ -135,6 +162,7 @@ def summarize(trace_path: str, top: int = 25, out=print) -> dict:
         "device_events": len(intervals),
         "kernels": n_kernels,
         "by_name": [[name, ms, count] for name, (ms, count) in rows[:top]],
+        "idle_by_span": [[name, ms] for name, ms in idle],
     }
     out(f"device lanes: {sorted(meta[p] for p in lanes) or 'none named'}")
     out(f"window {window_ms:.3f} ms; device busy {busy_ms:.3f} ms "
@@ -144,6 +172,9 @@ def summarize(trace_path: str, top: int = 25, out=print) -> dict:
     for name, ms, count in rec["by_name"]:
         share = 100.0 * ms / device_ms if device_ms else 0.0
         out(f"{name[:59]:<60}{ms:>12.4f}{count:>8}{share:>7.1f}%")
+    out(f"{'device idle, by innermost program span':<60}{'idle ms':>12}")
+    for name, ms in rec["idle_by_span"]:
+        out(f"{name[:59]:<60}{ms:>12.4f}")
     return rec
 
 
@@ -174,7 +205,10 @@ def profile_prove(prove_once, trace_path: str, device) -> float:
 
 
 def _prover(circuit: str, device):
-    """(prove_once, verify) of the profiled circuit."""
+    """(prove_once, verify) of the profiled circuit; each prove is given
+    a host-clock timer, so that the program records its spans."""
+    from ..plonk.prover import PhaseTimer
+
     if circuit == "wormhole":
         from ..models.wormhole.circuit import WormholeCircuit
         from ..models.wormhole.fixtures import synthetic_circuit_inputs
@@ -190,7 +224,7 @@ def _prover(circuit: str, device):
         def prove_once():
             prover = WormholeProver(cfg, _circuit_data=data.prover_data(),
                                     _targets=targets, device=device)
-            return prover.commit(inputs).prove()
+            return prover.commit(inputs).prove(timer=PhaseTimer())
 
         return prove_once, data.verify
     from ..plonk.builder import CircuitBuilder
@@ -205,7 +239,7 @@ def _prover(circuit: str, device):
     def prove_small():
         pw = PartialWitness()
         pw.set_target(x, 7)
-        return data.prove(pw, device=device)
+        return data.prove(pw, device=device, timer=PhaseTimer())
 
     return prove_small, data.verify
 

@@ -429,9 +429,6 @@ def test_threaded_level_returns_chunks_in_order(monkeypatch):
     assert len({name for name, _, _ in seen}) == 2
     assert all(d == torch.device("cpu") for _, _, d in seen)
     assert threading.main_thread().name not in {name for name, _, _ in seen}
-    with pytest.raises(ValueError, match="one at a time"):
-        aggregate_level([0, 1, 2, 3], "common", "vo", TreeAggregationConfig.new(2, 2),
-                        device="cpu", timer=object())
 
 
 def test_tree_runs_level_by_level(monkeypatch):

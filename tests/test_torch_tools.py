@@ -88,6 +88,47 @@ def test_lane_filter_without_categories(tmp_path):
     assert empty["device_events"] == 0 and empty["idle_share"] is None
 
 
+def test_idle_gaps_named_by_the_innermost_span(tmp_path):
+    """The program's spans are user_annotation ranges on the host: each
+    idle gap of the window goes to the innermost range holding its
+    midpoint, a gap inside none to "outside any span"; the window's own
+    range names nothing."""
+    def rng(name, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "pid": 77, "tid": 1, "name": name,
+                "ts": ts, "dur": dur}
+
+    trace = _write(tmp_path / "t.json", [
+        rng("qzk_prove", 0, 10000),
+        rng("prove", 1000, 9000),
+        rng("fused.lock_held", 5000, 4000),
+        rng("fused.replay", 5000, 1000),
+        rng("fused.download", 6000, 2000),
+        {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "name": "fused.replay",
+         "ts": 5000, "dur": 4000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "k", "ts": 500, "dur": 1000},
+        {"ph": "X", "cat": "kernel", "pid": 0, "name": "k", "ts": 5500, "dur": 1000},
+    ])
+    lines = []
+    rec = summarize(trace, out=lines.append)
+    # idle: [0, 500) outside; [1500, 5500) mid 3500 in prove; [6500, 10000)
+    # mid 8250 in fused.lock_held (the download ended at 8000)
+    assert dict(rec["idle_by_span"]) == pytest.approx(
+        {"outside any span": 0.5, "prove": 4.0, "fused.lock_held": 3.5})
+    assert rec["idle_by_span"][0][0] == "prove"
+    assert sum(ms for _, ms in rec["idle_by_span"]) == pytest.approx(
+        rec["window_ms"] - rec["busy_ms"])
+    assert any("innermost program span" in line for line in lines)
+
+
+def test_idle_gap_inside_nested_spans_takes_the_innermost():
+    from qzk_tpu_torch.tools.profile_prover import idle_by_span
+
+    ranges = [(0, 100, "prove"), (10, 90, "fused.lock_held"), (20, 40, "fused.download")]
+    assert idle_by_span(ranges, [(0, 25), (35, 100)], 0, 100) == {"fused.download": 0.01}
+    assert idle_by_span(ranges, [], 0, 100) == {"fused.lock_held": 0.1}
+    assert idle_by_span([], [(0, 50)], 0, 100) == {"outside any span": 0.05}
+
+
 @pytest.mark.parametrize("raw, name", [
     ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<long, long, "
      "long, at::native::BitwiseAndFunctor<long> >, at::detail::Array<char*, 3> >(int, T1, T2)",
