@@ -158,6 +158,8 @@ from qzk_tpu_torch.ops import ntt_torch as ntp  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_cuda as pc  # noqa: E402
 from qzk_tpu_torch.ops import poseidon_torch as pt  # noqa: E402
 from qzk_tpu_torch.ops import threefry  # noqa: E402
+from qzk_tpu_torch.ops import threefry_cuda as tc  # noqa: E402
+from qzk_tpu_torch.utils import spans  # noqa: E402
 
 # The kernels benchmark's NTT size: its 2^22 transform runs as two K3
 # passes over (2048, 2048).
@@ -269,14 +271,14 @@ def phase_build(state) -> None:
         return out, time.perf_counter() - t0
 
     builds = {"native": native.get_lib, "poseidon": pc.library_path, "ntt": nc.library_path,
-              "field": gc.library_path}
+              "field": gc.library_path, "threefry": tc.library_path}
     with Phase("build"), ThreadPoolExecutor(len(builds)) as pool:
         done = {k: pool.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in done.items()}
     if done["native"][0] is None:
         raise RuntimeError("native host library did not build")
     log("build (in parallel): " + ", ".join(f"{k} {t:.2f} s" for k, (_, t) in done.items()))
-    for key in ("poseidon", "ntt", "field"):
+    for key in ("poseidon", "ntt", "field", "threefry"):
         so = done[key][0]
         log(f"  {os.path.basename(so)}")
         with open(so + ".log") as f:
@@ -484,6 +486,85 @@ def phase_field(state) -> None:
     log(f"kernels (field): bit-exact against the plain torch versions at {n} (op, shape, "
         f"strides) keys of {len(runs)} warm proves, inputs with 0, 1, p-1, 2^63 and "
         f"2^64-1 planted: " + ", ".join(f"{op} {c}" for op, c in sorted(by_op.items())))
+
+
+# tests/test_torch_threefry.py's seeds, and K8's shapes: the leaf's and
+# the chunk's salts (lde_size, 4), the Wormhole's wires, and an odd count
+THREEFRY_SEEDS = [0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1] + [
+    int(s) for s in np.random.default_rng(20261017).integers(0, 1 << 63, size=3, dtype=np.uint64)]
+THREEFRY_SHAPES = [(1,), (7, 4), (1000, 135), (65536, 4), (262144, 4), (1001, 3)]
+THREEFRY_TIMED = [(65536, 4), (262144, 4)]
+# about 75 32-bit integer instructions an element (threefry.cu), at the
+# card's rate of 32-bit integer instructions (as chain_ms)
+THREEFRY_INSTRUCTIONS = 75
+INT32_PER_S = 16.727e12
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() in ms with the launches queued ahead of
+    the card: a sleep kernel holds the stream while the host enqueues
+    them, so that the host's launch rate does not set the time of a
+    launch shorter than its own Python (a draw cannot be captured in a
+    graph, as graph_ms would)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # about 10 ms at 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_threefry(state) -> None:
+    """K8 against the plain draw on the CPU, bit for bit, over the test
+    seeds at THREEFRY_SHAPES, one launch a draw and none for an empty
+    one; then its time at the salts' shapes beside its bound and the
+    plain version's on the card."""
+    dev = torch.device("cuda")
+    with Phase("kernels (threefry, K8)"):
+        for seed in THREEFRY_SEEDS:
+            sub = threefry.split(threefry.prng_key(seed))[1]
+            for shape in THREEFRY_SHAPES:
+                before = tc.LAUNCHES["threefry_draw"]
+                got = threefry.random_bits_u64_shr1(sub, shape, dev)
+                if tc.LAUNCHES["threefry_draw"] - before != 1:
+                    raise AssertionError(f"K8 {shape}: not one launch")
+                torch.cuda.synchronize()
+                require_equal(f"K8 seed {seed} {shape}", got,
+                              threefry.plain_bits_u64_shr1(sub, shape, "cpu"))
+        before = tc.LAUNCHES["threefry_draw"]
+        empty = threefry.random_bits_u64_shr1(sub, (0, 4), dev)
+        if tuple(empty.shape) != (0, 4) or tc.LAUNCHES["threefry_draw"] != before:
+            raise AssertionError("K8: an empty draw launched or lost its shape")
+    log(f"kernels (threefry): K8 bit-exact against the plain draw on the CPU at "
+        f"{len(THREEFRY_SEEDS)} seeds x {THREEFRY_SHAPES}, one launch a draw, none for (0, 4)")
+    records = []
+    for shape in THREEFRY_TIMED:
+        n = int(np.prod(shape))
+
+        def k8(shape=shape):
+            return threefry.random_bits_u64_shr1(sub, shape, dev)
+
+        def plain(shape=shape):
+            return threefry.plain_bits_u64_shr1(sub, shape, dev)
+
+        require_equal(f"plain draw on the card {shape}", plain(), k8())
+        rec = {"kernel": "K8 threefry_draw", "shape": list(shape),
+               "ms_events_10": cuda_ms(k8), "ms_queued_50": queued_ms(k8),
+               "plain_ms": cuda_ms(plain),
+               "bytes_bound_ms": 8 * n / 3.35e12 * 1e3,
+               "instr_bound_ms": THREEFRY_INSTRUCTIONS * n / INT32_PER_S * 1e3}
+        rec["bound_ms"] = max(rec["bytes_bound_ms"], rec["instr_bound_ms"])
+        records.append(rec)
+        log(f"K8 {shape}: {rec['ms_events_10']:.6f} ms a draw (CUDA events around 10, "
+            f"host-paced), {rec['ms_queued_50']:.6f} ms queued (50 behind a sleep); bound "
+            f"{rec['bound_ms']:.6f} ms (8n bytes {rec['bytes_bound_ms']:.6f}, instructions "
+            f"{rec['instr_bound_ms']:.6f}); plain on the card {rec['plain_ms']:.4f} ms")
+    log(json.dumps({"threefry": records}))
 
 
 def field_work(key) -> tuple[int, int, int]:
@@ -943,9 +1024,10 @@ def counted(path: str, fn):
     pc.reset_launches()
     nc.reset_launches()
     gc.reset_launches()
+    tc.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    launches = {**pc.LAUNCHES, **nc.LAUNCHES, **gc.LAUNCHES}
+    launches = {**pc.LAUNCHES, **nc.LAUNCHES, **gc.LAUNCHES, **tc.LAUNCHES}
     for key in KERNELS:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the {path} path")
@@ -956,7 +1038,17 @@ def launch_text(launches) -> str:
     return (f"launches K1 {launches['hash_rows']}, K2 {launches['permute']}, "
             f"K3 {launches['ntt_axis0']}, K4 {launches['field_map']}, "
             f"K5 {launches['field_inverse']}, K6 {launches['field_powers']}, "
-            f"K7 {launches['field_reduce']}")
+            f"K7 {launches['field_reduce']}, K8 {launches['threefry_draw']}")
+
+
+def require_draws(name: str, timer, launches) -> None:
+    """One K8 launch for each blinding.draw span of the prove timed by
+    `timer` (none without zero knowledge)."""
+    draws = sum(s.name == "blinding.draw" for s in spans.spans_of(timer))
+    if launches["threefry_draw"] != draws:
+        raise AssertionError(f"{name}: {launches['threefry_draw']} K8 launches for {draws} "
+                             "blinding.draw spans")
+    log(f"{name}: {draws} blinding.draw spans, {draws} K8 launches")
 
 
 @contextlib.contextmanager
@@ -1040,6 +1132,7 @@ def drive(state, name) -> None:
         proof, launches = one_replay(data.prover_only, zk, name)(
             lambda: counted(name, lambda: prove(timer)))
     record_run(state["runs"], name, proof, prove, launches, ph.seconds, timer)
+    require_draws(name, timer, launches)
     require_pin(f"prove {name}: proof", proof, _pins()[name])
 
 
@@ -1068,6 +1161,7 @@ def drive_staged(state, name) -> None:
         with Phase(f"prove {staged} (warm)") as ph:
             proof, launches = counted(staged, lambda: prove(timer))
     record_run(state["staged_runs"], staged, proof, prove, launches, ph.seconds, timer)
+    require_draws(staged, timer, launches)
     require_pin(f"prove {staged}: proof", proof, _pins()[name])
 
 
@@ -1131,20 +1225,6 @@ def profile_pair(state) -> None:
                                  for p, r in summaries.items()}, "replay_ms": replay_ms}))
 
 
-def time_salt_draw(common) -> None:
-    """One zk salt draw of `common`'s prove, (lde_size, 4), on the card:
-    equal to the CPU's draw, and its time by CUDA events around 10
-    draws."""
-    dev = torch.device("cuda")
-    _, sub = threefry.split(threefry.prng_key(20261017))
-    shape = (common.lde_size, 4)
-    got = threefry.random_bits_u64_shr1(sub, shape, dev)
-    require_equal(f"salt draw {shape}", got, threefry.random_bits_u64_shr1(sub, shape, "cpu"))
-    ms = cuda_ms(lambda: threefry.random_bits_u64_shr1(sub, shape, dev))
-    log(f"salt draw {shape}: {ms:.4f} ms (CUDA events, 10 draws), equal to the CPU's "
-        f"draw; three a zk prove")
-
-
 def phase_prove(state) -> None:
     state["runs"], state["staged_runs"], state["graphs"] = {}, {}, {}
     drive(state, "wormhole_zk")
@@ -1152,7 +1232,6 @@ def phase_prove(state) -> None:
     state["syncs"] = {"wormhole_zk": syncs}
     log(f"prove wormhole_zk: {syncs} synchronising CUDA calls in one warm fused prove "
         f"(torch.cuda.set_sync_debug_mode)")
-    time_salt_draw(state["common"])
     for name in PATHS[1:]:
         drive(state, name)
     spread = {"wormhole_zk": [], "wormhole_nonzk": []}
@@ -1207,6 +1286,7 @@ def prove_chunk_timed(state, name, prove, chunk=None, runs=None):
         f"{cold_peak / 2**30:.3f} GiB first, {peak / 2**30:.3f} GiB warm "
         f"(torch.cuda.max_memory_allocated), of which {resident / 2**30:.3f} GiB were "
         f"allocated before (the earlier circuits' contexts, graphs and proofs)")
+    require_draws(f"aggregate {name}", timer, launches)
     return out
 
 
@@ -1253,7 +1333,6 @@ def phase_aggregate(state) -> None:
     require_pin("(2, 1) aggregation root, staged", staged.proof, wfix.AGG_2_1_ZK_ROOT_SHA256)
     with Phase("fused against staged, (2, 1) tree"):
         state["alternate"]["agg_2_1"] = alternate("aggregate agg_2_1", aggregate, aggregate)
-    time_salt_draw(root.circuit_data.common)
     state["agg_runs"]["square_chunk"]["result"] = sq
     state["agg_runs"]["agg_2_1"]["result"] = root
 
@@ -1312,6 +1391,7 @@ def drive_sharded(state, name: str, d: int) -> None:
     if (n_first, n_warm) != (1, 1):
         raise AssertionError(f"{key}: sharded_prove ran {n_first} and {n_warm} times, not 1 and 1")
     record_run(state["sharded_runs"], key, proof, prove, launches, ph.seconds, timer)
+    require_draws(f"sharded {key}", timer, launches)
     state["sharded_runs"][key]["peak"] = (cold_peak, peak)
     log(f"sharded {key}: {mesh}; peak device memory {cold_peak / 2**30:.3f} GiB first, "
         f"{peak / 2**30:.3f} GiB warm (torch.cuda.max_memory_allocated), of which "
@@ -1730,8 +1810,8 @@ def main() -> int:
         log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
         return 0
     for phase in (phase_build, phase_circuit, phase_kernels, phase_ntt, phase_prove,
-                  phase_field, phase_aggregate, phase_sharded, phase_artifacts, phase_verify,
-                  phase_report):
+                  phase_field, phase_threefry, phase_aggregate, phase_sharded, phase_artifacts,
+                  phase_verify, phase_report):
         phase(state)
     log(f"[phase] total: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,11 @@ same code runs on Python ints (keys) and on torch int64 tensors (draws).
 A draw returns ``(bits1 << 31) | (bits2 >> 1)``, the uint64 shifted
 right by one: below 2^63 < p, so a canonical field element whose int64
 bit pattern never has the sign bit set.
+
+On a CUDA device a draw is one launch of the kernel K8
+(``threefry_cuda``, csrc/threefry.cu); on any other it is the plain
+version, ``plain_bits_u64_shr1``, torch ops on int64 tensors, which is
+K8's oracle.  Keys and splits stay on the host as Python ints.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import threefry_cuda
 
 MASK32 = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
@@ -69,7 +76,15 @@ def split(key: tuple[int, int]) -> tuple[tuple[int, int], tuple[int, int]]:
 
 def random_bits_u64_shr1(key: tuple[int, int], shape, device) -> torch.Tensor:
     """``jax.random.bits(key, shape, "uint64") >> 1`` as int64 on
-    `device`."""
+    `device`: K8 on a CUDA device, the plain version on any other."""
+    if torch.device(device).type == "cuda":
+        return threefry_cuda.draw(key, shape, device)
+    return plain_bits_u64_shr1(key, shape, device)
+
+
+def plain_bits_u64_shr1(key: tuple[int, int], shape, device) -> torch.Tensor:
+    """The draw as torch ops on int64 tensors, on any device (about 170
+    launches on a card): K8's oracle."""
     shape = tuple(int(s) for s in shape)
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     hi, lo = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
