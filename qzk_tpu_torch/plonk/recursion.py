@@ -9,6 +9,9 @@ statement: it builds circuits on the host and runs no device code, and
 the order in which it emits gates is the circuit (a reordered fold or a
 missed constant-folding case moves the circuit digest and every proof
 byte after it), so the two packages build the same recursion circuits.
+The witness fill is the exception: it sets the same targets to the same
+values in the same order, with one array call a proof in place of one
+call a value.
 
 The in-circuit verifier mirrors plonk/verifier.py + plonk/fri.py
 statement for statement:
@@ -387,6 +390,14 @@ class ProofWithPisTarget:
     openings: OpeningsTarget
     fri: FriProofTarget
     public_inputs: list  # list[Target]
+
+    def __getstate__(self):
+        """The pickled state leaves out the target ids that the first
+        fill derives and stores here (`_fill`), so that a chunk circuit
+        pickles the same before and after a fill."""
+        state = dict(self.__dict__)
+        state.pop("_fill", None)
+        return state
 
 
 @dataclass
@@ -832,68 +843,82 @@ def fri_verify_circuit(
 # ---------------------------------------------------------------------------
 
 
-def set_proof_with_pis_target(pw, proof_t: ProofWithPisTarget, pwpi) -> None:
-    """Fill proof targets from a concrete ProofWithPublicInputs."""
-    p = pwpi.proof
+def _fill_targets(proof_t: ProofWithPisTarget):
+    """(ids, sizes): the proof's targets in the order the fill sets them
+    (caps, openings as extension pairs, FRI layer caps, final polynomial,
+    PoW witness, then each query's initial leaves and paths and its
+    steps' leaves and paths, then the public inputs), and the length of
+    each part.  Fixed by the circuit, so kept on `proof_t`."""
+    cached = proof_t.__dict__.get("_fill")
+    if cached is not None:
+        return cached
+    parts = []
 
-    def set_caps(cap_ts, cap_vals):
-        for d_t, d in zip(cap_ts, np.asarray(cap_vals, dtype=np.uint64)):
-            pw.set_hash_target(d_t, d)
+    def caps(cap_ts):
+        parts.append([t for d in cap_ts for t in d.elements])
 
-    set_caps(proof_t.wires_cap, p.wires_cap)
-    set_caps(proof_t.zs_partial_cap, p.zs_partial_cap)
-    set_caps(proof_t.quotient_cap, p.quotient_cap)
+    def exts(ext_ts):
+        assert all(e.kind == "x" for e in ext_ts)
+        parts.append([t for e in ext_ts for t in e.data])
 
-    o = p.openings
-
-    def set_exts(ext_ts, vals):
-        vals = np.asarray(vals, dtype=np.uint64).reshape(-1, 2)
-        assert len(ext_ts) == len(vals)
-        for e, v in zip(ext_ts, vals):
-            assert e.kind == "x"
-            pw.set_target(e.data[0], int(v[0]))
-            pw.set_target(e.data[1], int(v[1]))
-
+    caps(proof_t.wires_cap)
+    caps(proof_t.zs_partial_cap)
+    caps(proof_t.quotient_cap)
     ot = proof_t.openings
-    set_exts(ot.preprocessed, o.preprocessed)
-    set_exts(ot.wires, o.wires)
-    set_exts(ot.zs_partial, o.zs_partial)
-    set_exts(ot.quotient, o.quotient)
-    set_exts(ot.zs_partial_right, o.zs_partial_right)
-
-    f = p.fri
+    for ext_ts in (ot.preprocessed, ot.wires, ot.zs_partial, ot.quotient, ot.zs_partial_right):
+        exts(ext_ts)
     ft = proof_t.fri
-    for cap_t, cap in zip(ft.commit_phase_caps, f.commit_phase_caps):
-        set_caps(cap_t, cap)
-    set_exts(ft.final_poly, f.final_poly)
-    pw.set_target(ft.pow_witness, int(f.pow_witness))
-    assert len(ft.query_rounds) == len(f.query_rounds)
-    for rt, r in zip(ft.query_rounds, f.query_rounds):
-        for leaf_ts, leaf in zip(rt.initial_leaves, r.initial.leaves):
-            pw.set_target_arr(leaf_ts, np.asarray(leaf, dtype=np.uint64))
-        for path_ts, path in zip(rt.initial_paths, r.initial.paths):
-            assert len(path_ts) == len(path)
-            for d_t, d in zip(path_ts, path):
-                pw.set_hash_target(d_t, d)
-        for st, s in zip(rt.steps, r.steps):
-            set_exts(st.leaf, s.leaf)
-            assert len(st.path) == len(s.path)
-            for d_t, d in zip(st.path, s.path):
-                pw.set_hash_target(d_t, d)
+    for cap_t in ft.commit_phase_caps:
+        caps(cap_t)
+    exts(ft.final_poly)
+    parts.append([ft.pow_witness])
+    for rt in ft.query_rounds:
+        parts.extend(list(leaf_ts) for leaf_ts in rt.initial_leaves)
+        for path_ts in rt.initial_paths:
+            caps(path_ts)
+        for st in rt.steps:
+            exts(st.leaf)
+            caps(st.path)
+    parts.append(list(proof_t.public_inputs))
+    ids = np.fromiter((t for part in parts for t in part), dtype=np.int64)
+    proof_t._fill = (ids, [len(part) for part in parts])
+    return proof_t._fill
 
-    pw.set_target_arr(
-        proof_t.public_inputs,
-        np.asarray(pwpi.public_inputs, dtype=np.uint64),
-    )
+
+def _fill_values(pwpi) -> list:
+    """The proof's values as flat uint64 arrays, part by part as
+    _fill_targets lists the targets."""
+    p = pwpi.proof
+    o = p.openings
+    f = p.fri
+    parts = [p.wires_cap, p.zs_partial_cap, p.quotient_cap, o.preprocessed, o.wires,
+             o.zs_partial, o.quotient, o.zs_partial_right, *f.commit_phase_caps,
+             f.final_poly, [f.pow_witness]]
+    for r in f.query_rounds:
+        parts.extend(r.initial.leaves)
+        parts.extend(r.initial.paths)
+        for s in r.steps:
+            parts.extend((s.leaf, s.path))
+    parts.append(pwpi.public_inputs)
+    return [np.asarray(v, dtype=np.uint64).reshape(-1) for v in parts]
+
+
+def set_proof_with_pis_target(pw, proof_t: ProofWithPisTarget, pwpi) -> None:
+    """Fill proof targets from a concrete ProofWithPublicInputs, with one
+    set_target_arr call over every target of the proof."""
+    ids, sizes = _fill_targets(proof_t)
+    vals = _fill_values(pwpi)
+    if [len(v) for v in vals] != sizes:
+        raise ValueError("the proof's shape is not its proof targets'")
+    pw.set_target_arr(ids, np.concatenate(vals))
 
 
 def set_verifier_data_target(pw, vd_t: VerifierCircuitTarget, verifier_only) -> None:
-    for d_t, d in zip(
-        vd_t.constants_sigmas_cap,
-        np.asarray(verifier_only.constants_sigmas_cap, dtype=np.uint64),
-    ):
-        pw.set_hash_target(d_t, d)
-    pw.set_hash_target(
-        vd_t.circuit_digest,
-        np.asarray(verifier_only.circuit_digest, dtype=np.uint64),
-    )
+    """One set_target_arr call: the constants/sigmas cap, then the
+    circuit digest."""
+    digests = [*vd_t.constants_sigmas_cap, vd_t.circuit_digest]
+    cap = np.asarray(verifier_only.constants_sigmas_cap, dtype=np.uint64).reshape(-1, 4)
+    digest = np.asarray(verifier_only.circuit_digest, dtype=np.uint64).reshape(4)
+    if len(cap) != len(vd_t.constants_sigmas_cap):
+        raise ValueError("the verifier data's cap is not its target's size")
+    pw.set_target_arr([t for d in digests for t in d.elements], np.concatenate([cap.ravel(), digest]))

@@ -10,7 +10,9 @@ generator list (already topologically ordered by construction) is
 levelized once at build time into batches of independent same-kind
 generators; each batch executes as one vectorized numpy sweep (Poseidon
 batches run the full (B, 12) batched permutation).  This keeps host-side
-witness generation off the critical path.
+witness generation off the critical path.  The partial witness holds its
+values as arrays indexed by target, set and read in bulk: a chunk fill
+is a few array calls, and seeding the generators one scatter.
 """
 
 from __future__ import annotations
@@ -34,31 +36,109 @@ class WitnessConflict(ValueError):
 
 
 class PartialWitness:
+    """The values set so far, as arrays indexed by target id: `_vals`
+    (canonical, uint64), `_set` (bool) and `_order` (int64: where in the
+    sequence of set values a target was first set, so that a conflict
+    names the target a walk in set order meets first).  The arrays grow
+    by doubling.  `set_calls` counts the calls of the set_* methods."""
+
     def __init__(self):
-        self.values: dict[int, int] = {}
+        self._vals = np.zeros(0, dtype=np.uint64)
+        self._set = np.zeros(0, dtype=bool)
+        self._order = np.zeros(0, dtype=np.int64)
+        self._next = 0  # the order of the next value set
+        self.set_calls = 0
+
+    def _reserve(self, top: int) -> None:
+        """Room for target id `top`."""
+        n = len(self._set)
+        if top < n:
+            return
+        size = max(2 * n, top + 1, 1024)
+        for name in ("_vals", "_set", "_order"):
+            old = getattr(self, name)
+            new = np.zeros(size, dtype=old.dtype)
+            new[:n] = old
+            setattr(self, name, new)
 
     def set_target(self, t: int, value) -> None:
+        self.set_calls += 1
         value = int(value) % gl.P
-        existing = self.values.get(t)
-        if existing is not None and existing != value:
-            raise WitnessConflict(t)
-        self.values[t] = value
+        self._reserve(int(t))
+        if self._set[t]:
+            if int(self._vals[t]) != value:
+                raise WitnessConflict(t)
+            return
+        self._vals[t] = value
+        self._set[t] = True
+        self._order[t] = self._next
+        self._next += 1
 
     def set_target_arr(self, targets, values) -> None:
-        values = np.asarray(values, dtype=np.uint64).ravel()
-        assert len(targets) == len(values), (
-            f"target/value length mismatch: {len(targets)} vs {len(values)}"
+        self.set_calls += 1
+        self._set_arr(targets, values)
+
+    def _set_arr(self, targets, values) -> None:
+        """set_target over the pairs in order, as one scatter: a clash
+        (with a value set before, or between two places of one target in
+        this call) raises on the first clashing place, after the places
+        before it are set."""
+        ts = np.asarray(targets, dtype=np.int64).ravel()
+        vs = np.asarray(values, dtype=np.uint64).ravel()
+        assert len(ts) == len(vs), (
+            f"target/value length mismatch: {len(ts)} vs {len(vs)}"
         )
-        for t, v in zip(targets, values):
-            self.set_target(t, int(v))
+        if not len(ts):
+            return
+        vs = vs % np.uint64(gl.P)
+        self._reserve(int(ts.max()))
+        was = self._set[ts]
+        fresh = ~was
+        if not (was & (self._vals[ts] != vs)).any():
+            self._vals[ts[fresh]] = vs[fresh]
+            # equal read-backs: no target twice in the call with two values
+            if (self._vals[ts] == vs).all():
+                new_ts = ts[fresh]
+                order = self._next + np.flatnonzero(fresh)
+                self._set[new_ts] = True
+                self._order[new_ts] = order
+                if (self._order[new_ts] != order).any():  # a target twice: its first place
+                    np.minimum.at(self._order, new_ts, order)
+                self._next += len(ts)
+                return
+        # what each place meets in a walk in order: the value set before
+        # the call, else the value at the target's first place in the call
+        _, first, inv = np.unique(ts, return_index=True, return_inverse=True)
+        met = np.where(was, self._vals[ts], vs[first[inv.ravel()]])
+        i = int(np.flatnonzero(met != vs)[0])
+        self._set_arr(ts[:i], vs[:i])
+        raise WitnessConflict(int(ts[i]))
 
     def set_hash_target(self, h: HashOutTarget, digest) -> None:
         digest = np.asarray(digest, dtype=np.uint64).ravel()
         assert digest.shape == (4,)
-        self.set_target_arr(list(h.elements), digest)
+        self.set_target_arr(h.elements, digest)
 
     def set_bool_target(self, b: BoolTarget, value: bool) -> None:
         self.set_target(b.target, 1 if value else 0)
+
+    @property
+    def num_values(self) -> int:
+        """The number of targets set."""
+        return int(np.count_nonzero(self._set))
+
+    def set_arrays(self):
+        """(targets, values, order) of the targets set, by target id."""
+        ts = np.flatnonzero(self._set)
+        return ts, self._vals[ts], self._order[ts]
+
+    @property
+    def values(self) -> dict:
+        """{target: value} in the order the targets were first set, built
+        on each read (for tests and tools; a prove reads set_arrays)."""
+        ts, vs, order = self.set_arrays()
+        by = np.argsort(order, kind="stable")
+        return dict(zip(ts[by].tolist(), vs[by].tolist()))
 
 
 # ---------------------------------------------------------------------------
@@ -252,25 +332,43 @@ def run_generators(
     plan: GeneratorBatches, pw: PartialWitness
 ) -> tuple[np.ndarray, np.ndarray]:
     """Execute all generator batches; returns (values, known) arrays
-    indexed by union-find root.  The span "witness.generators"."""
-    with spans.span("witness.generators"):
+    indexed by union-find root.  The span "witness.generators", with the
+    attributes `values` (the targets seeded) and `set_calls` (the set_*
+    calls that set them)."""
+    with spans.span("witness.generators",
+                    attrs={"values": pw.num_values, "set_calls": pw.set_calls}):
         return _run_generators(plan, pw)
+
+
+def _seed_conflict(ts, vs, order, rs) -> int:
+    """The target a walk over the set targets in set order first finds
+    clashing with an earlier one of its union-find root."""
+    by = np.lexsort((order, rs))
+    rs, vs, order = rs[by], vs[by], order[by]
+    clash = np.flatnonzero((rs[1:] == rs[:-1]) & (vs[1:] != vs[:-1])) + 1
+    return int(ts[by][clash[np.argmin(order[clash])]])
+
+
+def seed_values(plan: GeneratorBatches, pw: PartialWitness):
+    """(values, known) indexed by union-find root, holding the partial
+    witness's values: one scatter."""
+    values = np.zeros(plan.num_targets, dtype=np.uint64)
+    known = np.zeros(plan.num_targets, dtype=bool)
+    ts, vs, order = pw.set_arrays()
+    rs = plan.roots[ts]
+    values[rs] = vs
+    # equal read-backs: every root's targets agree
+    if not (values[rs] == vs).all():
+        raise WitnessConflict(_seed_conflict(ts, vs, order, rs))
+    known[rs] = True
+    return values, known
 
 
 def _run_generators(plan: GeneratorBatches, pw: PartialWitness):
     from .gates import poseidon_trace
 
-    n = plan.num_targets
-    values = np.zeros(n, dtype=np.uint64)
-    known = np.zeros(n, dtype=bool)
     roots = plan.roots
-
-    for t, v in pw.values.items():
-        r = roots[t]
-        if known[r] and values[r] != np.uint64(v):
-            raise WitnessConflict(t)
-        values[r] = np.uint64(v)
-        known[r] = True
+    values, known = seed_values(plan, pw)
 
     native_plan = _native_plan_for(plan)
     if native_plan is not None:

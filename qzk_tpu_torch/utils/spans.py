@@ -6,10 +6,11 @@ protocol: mark(name) at the end of each phase): plonk.prover.prove and
 aggregator.aggregate_to_tree / aggregate_level.  A prove inside an open
 aggregation joins its request.  Every span of a request carries the
 request's id, its parent span and a few attributes (`level`, `chunk`,
-`chunks` and `card` on aggregation spans, `card` on a prove); a span
-opened with `device=` also times its work on that card with a pair of
-CUDA events, read as `device_ms` when first asked for, after the
-prove's own download has waited for the card.
+`chunks` and `card` on aggregation spans, `card` on a prove, `values`
+and `set_calls` on the generators); a span opened with `device=` also
+times its work on that card with a pair of CUDA events, read as
+`device_ms` when first asked for, after the prove's own download has
+waited for the card.
 
 The phases a prove marks are its top-level spans: Phases.mark(name)
 ends the phase begun at the previous mark (or at the prove's start) and
@@ -162,13 +163,14 @@ def _attrs(level, chunk, chunks, card) -> dict:
 
 
 def span(name: str, *, timer=None, device=None, level=None, chunk=None, chunks=None,
-         card=None):
+         card=None, attrs=None):
     """A context manager that records the span `name` in the open
     request, or opens a request when none is and `timer` is given (the
     span is then its root).  Entering gives a Phases object, whose
     mark(name) ends a top-level phase and forwards it to `timer`, or None
     when no request is open.  `device`: the card whose current stream
-    the span's work runs on, timed by CUDA events (ignored off a card)."""
+    the span's work runs on, timed by CUDA events (ignored off a card).
+    `attrs`: further attributes of the span, a dict."""
     state = _STATE.get()
     if state is None:
         if timer is None:
@@ -182,7 +184,8 @@ def span(name: str, *, timer=None, device=None, level=None, chunk=None, chunks=N
         request, parent = _Request(spans), None
     else:
         request, parent = state
-    return _Open(request, parent, timer, name, _attrs(level, chunk, chunks, card), device)
+    return _Open(request, parent, timer, name,
+                 {**_attrs(level, chunk, chunks, card), **(attrs or {})}, device)
 
 
 class _Locked:
