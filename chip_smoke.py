@@ -31,13 +31,7 @@ Phases, in order:
            warm prove counted, then one zk salt draw timed on its own and
            held to the CPU's draw, then the non-zk Wormhole and the
            voting proofs; then three more warm proves of each Wormhole
-           config in turn, on the host clock; then the zk Wormhole
-           through the staged pipeline (QZK_FUSED=0), first and warm,
-           with its phases and launches, at the same pin, and three
-           pairs of warm fused and staged proves in turn; then one warm
-           fused and one warm staged prove under torch.profiler, each
-           summarised (device time by kernel, busy time, idle share,
-           kernel count), beside the CUDA-event time of one graph replay;
+           config in turn, on the host clock;
   kernels (field)  hold each field op of K4-K7 (field.cu: the field map
            and the Poseidon gate's round, inverses, powers, sums, weighted
            sums and chunk products) against its plain torch version
@@ -55,9 +49,7 @@ Phases, in order:
            timed by CUDA events and the kernel launches counted from 0
            (every kernel must be launched, the warm prove one graph
            replay), its root's sha256 held to the JAX package's, and the
-           peak device memory of each; the same tree through the staged
-           pipeline at the same pin, and three pairs of warm fused and
-           staged trees in turn; then one zk salt draw at the chunk
+           peak device memory of each; then one zk salt draw at the chunk
            prove's shape, timed and held to the CPU's draw;
   sharded  the sharded prover (qzk_tpu_torch/parallel/) on one card: the
            zk Wormhole over a mesh of 4 shards on cuda:0 and the non-zk
@@ -128,7 +120,6 @@ import json
 import os
 import subprocess
 import sys
-import tempfile
 import time
 import warnings
 from collections import Counter
@@ -472,9 +463,9 @@ def check_field(keys, rng, dev, err: dict) -> int:
 def phase_field(state) -> None:
     """K4-K7 against their plain versions at every (op, shape, strides)
     that the warm proves of the prove phase launched: the zk Wormhole's
-    first, then the other circuits' and the staged prove's."""
+    first, then the other circuits'."""
     dev = torch.device("cuda")
-    runs = {**state["runs"], **state["staged_runs"]}
+    runs = state["runs"]
     keys = set().union(*(r["field_shapes"] for r in runs.values()))
     # the S-box alone, which the round ops fold in, at the round's shape
     m = state["common"].lde_size
@@ -875,7 +866,7 @@ def time_kernels(state) -> list[dict]:
             "library_ms": None, "shape": shape,
             "launches_by_path": {p: r["launches"][key] for p, r in
                                  {**state["runs"], **state["agg_runs"],
-                                  **state["artifact_runs"], **state["staged_runs"],
+                                  **state["artifact_runs"],
                                   **state["sharded_runs"]}.items()},
         }
 
@@ -1051,20 +1042,6 @@ def require_draws(name: str, timer, launches) -> None:
     log(f"{name}: {draws} blinding.draw spans, {draws} K8 launches")
 
 
-@contextlib.contextmanager
-def qzk_fused(flag: str):
-    """QZK_FUSED set to `flag` inside the block ("0": the staged path)."""
-    old = os.environ.get("QZK_FUSED")
-    os.environ["QZK_FUSED"] = flag
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["QZK_FUSED"]
-        else:
-            os.environ["QZK_FUSED"] = old
-
-
 def fused_graph(prover_only, zk: bool):
     """(the fused pipeline's CUDA graph, the context) of a circuit on the
     card."""
@@ -1147,86 +1124,8 @@ def record_run(runs, name, proof, prove, launches, seconds, timer) -> None:
     log(f"prove {name}: {seconds:.3f} s; {launch_text(launches)}")
 
 
-def drive_staged(state, name) -> None:
-    """The staged pipeline (QZK_FUSED=0) on circuit `name`: a first
-    prove, then a warm one with its phases and launches; same pin."""
-    from qzk_tpu_torch.plonk.prover import PhaseTimer
-
-    prove = prover_of(state, name)
-    staged = f"{name}_staged"
-    with qzk_fused("0"):
-        with Phase(f"prove {staged} (first)"):
-            prove()
-        timer = PhaseTimer(cuda_events=True)
-        with Phase(f"prove {staged} (warm)") as ph:
-            proof, launches = counted(staged, lambda: prove(timer))
-    record_run(state["staged_runs"], staged, proof, prove, launches, ph.seconds, timer)
-    require_draws(staged, timer, launches)
-    require_pin(f"prove {staged}: proof", proof, _pins()[name])
-
-
-def alternate(label: str, fused, staged, pairs: int = 3) -> dict:
-    """`pairs` pairs of warm fused and staged calls in turn (fused,
-    staged, staged, fused, ...), each on the host clock between two
-    synchronizes.  Logs and returns the seconds of each path."""
-    times = {"fused": [], "staged": []}
-    order = []
-    for i in range(pairs):
-        order += [("fused", fused), ("staged", staged)][:: 1 if i % 2 == 0 else -1]
-    for path, fn in order:
-        with qzk_fused("1" if path == "fused" else "0"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times[path].append(time.perf_counter() - t0)
-    for path, ts in times.items():
-        log(f"{label} {path} (warm, host clock, in turn): " + ", ".join(f"{t:.4f}" for t in ts)
-            + " s")
-    return times
-
-
-def profile_pair(state) -> None:
-    """One warm fused and one warm staged zk Wormhole prove under
-    torch.profiler, each summarised; beside them the CUDA-event time of
-    one replay of the zk Wormhole graph."""
-    from qzk_tpu_torch.tools import profile_prover as prof
-
-    prove = state["runs"]["wormhole_zk"]["prove"]
-    data = state["circuits"]["wormhole_zk"][0]
-    graph, _ = fused_graph(data.prover_only, True)
-    dev = torch.device("cuda")
-    summaries = {}
-    with Phase("profile (torch.profiler, one warm zk prove a path)"), \
-            tempfile.TemporaryDirectory(prefix="qzk_profile_") as tmp:
-        for path in ("fused", "staged"):
-            with qzk_fused("1" if path == "fused" else "0"):
-                trace = os.path.join(tmp, f"prove_{path}.json")
-                t0 = time.perf_counter()
-                seconds = prof.profile_prove(prove, trace, dev)
-                t1 = time.perf_counter()
-            summaries[path] = prof.summarize(trace, top=40, out=lambda line: log("  " + line))
-            log(f"profile {path}: {seconds:.4f} s on the host clock under the profiler; "
-                f"profile and export {t1 - t0:.3f} s, a {os.path.getsize(trace)}-byte trace, "
-                f"parsed in {time.perf_counter() - t1:.3f} s")
-        replay_ms = cuda_ms(graph.graph.replay, iters=5, warmup=1)
-    if summaries["fused"]["kernels"] == 0:
-        log("profile fused: the trace shows no kernel launched by the graph replay")
-    log(f"profile: one replay of the zk Wormhole graph {replay_ms:.4f} ms (CUDA events, mean of "
-        f"5); staged prove device busy {summaries['staged']['busy_ms']:.4f} ms of "
-        f"{summaries['staged']['window_ms']:.4f} ms (idle share "
-        f"{summaries['staged']['idle_share']:.4f}); fused busy "
-        f"{summaries['fused']['busy_ms']:.4f} ms of {summaries['fused']['window_ms']:.4f} ms "
-        f"(idle share {summaries['fused']['idle_share']:.4f})")
-    log(f"profile: kernels a warm zk Wormhole prove: fused {summaries['fused']['kernels']} "
-        f"(device busy {summaries['fused']['busy_ms']:.4f} ms), staged "
-        f"{summaries['staged']['kernels']} (device busy {summaries['staged']['busy_ms']:.4f} ms)")
-    log(json.dumps({"profiles": {p: {k: v for k, v in r.items() if k != "by_name"}
-                                 for p, r in summaries.items()}, "replay_ms": replay_ms}))
-
-
 def phase_prove(state) -> None:
-    state["runs"], state["staged_runs"], state["graphs"] = {}, {}, {}
+    state["runs"], state["graphs"] = {}, {}
     drive(state, "wormhole_zk")
     syncs = count_syncs(state["runs"]["wormhole_zk"]["prove"])
     state["syncs"] = {"wormhole_zk": syncs}
@@ -1245,38 +1144,30 @@ def phase_prove(state) -> None:
                 times.append(time.perf_counter() - t0)
     for name, times in spread.items():
         log(f"prove spread {name}: " + ", ".join(f"{t:.4f}" for t in times) + " s")
-    drive_staged(state, "wormhole_zk")
-    prove = state["runs"]["wormhole_zk"]["prove"]
-    with Phase("fused against staged, zk Wormhole"):
-        state["alternate"] = {"wormhole_zk": alternate("prove wormhole_zk", prove, prove)}
-    profile_pair(state)
 
 
-def prove_chunk_timed(state, name, prove, chunk=None, runs=None):
+def prove_chunk_timed(state, name, prove, chunk):
     """prove(timer) once, then once warm with its phases timed by CUDA
     events and the kernel launches counted from 0; every kernel must
-    have been launched, and a warm fused prove of `chunk`'s circuit must
-    be one graph replay.  Records the run under runs[name]
-    (state["agg_runs"] by default) and returns the warm result."""
+    have been launched, and the warm prove of `chunk`'s circuit must be
+    one graph replay.  Records the run under state["agg_runs"][name] and
+    returns the warm result."""
     from qzk_tpu_torch.plonk.prover import PhaseTimer
 
-    runs = state["agg_runs"] if runs is None else runs
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with Phase(f"aggregate {name} (first, includes per-circuit device setup)"):
         prove(None)
     cold_peak = torch.cuda.max_memory_allocated()
-    replay_once = lambda fn: fn()  # noqa: E731
-    if chunk is not None:
-        zk = chunk.data.common.config.zero_knowledge
-        log_capture(state, name, chunk.data.prover_only, zk)
-        replay_once = one_replay(chunk.data.prover_only, zk, name)
+    zk = chunk.data.common.config.zero_knowledge
+    log_capture(state, name, chunk.data.prover_only, zk)
+    replay_once = one_replay(chunk.data.prover_only, zk, name)
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer(cuda_events=True)
     with Phase(f"aggregate {name} (warm)") as ph:
         out, launches = replay_once(lambda: counted(name, lambda: prove(timer)))
     peak = torch.cuda.max_memory_allocated()
-    runs[name] = {
+    state["agg_runs"][name] = {
         "launches": launches, "k1_shapes": Counter(pc.K1_SHAPES),
         "k3_shapes": Counter(nc.K3_SHAPES), "field_shapes": Counter(gc.FIELD_SHAPES),
     }
@@ -1327,12 +1218,6 @@ def phase_aggregate(state) -> None:
     state["syncs"]["agg_2_1"] = syncs
     log(f"aggregate agg_2_1: {syncs} synchronising CUDA calls in one warm fused tree "
         f"(torch.cuda.set_sync_debug_mode)")
-    with qzk_fused("0"):
-        staged = prove_chunk_timed(state, "agg_2_1_staged", aggregate,
-                                   runs=state["staged_runs"])
-    require_pin("(2, 1) aggregation root, staged", staged.proof, wfix.AGG_2_1_ZK_ROOT_SHA256)
-    with Phase("fused against staged, (2, 1) tree"):
-        state["alternate"]["agg_2_1"] = alternate("aggregate agg_2_1", aggregate, aggregate)
     state["agg_runs"]["square_chunk"]["result"] = sq
     state["agg_runs"]["agg_2_1"]["result"] = root
 
@@ -1441,7 +1326,7 @@ def check_sharded_shapes(state) -> None:
     rng = np.random.default_rng(13)
     k1 = set().union(*(r["k1_shapes"] for r in state["sharded_runs"].values()))
     k3 = set().union(*(r["k3_shapes"] for r in state["sharded_runs"].values()))
-    later = {**state["agg_runs"], **state["staged_runs"], **state["sharded_runs"]}
+    later = {**state["agg_runs"], **state["sharded_runs"]}
     field = set().union(*(r["field_shapes"] for r in later.values())) - state["field_checked"]
     err = state["max_abs_err"]
     with Phase("sharded kernel shapes"):
@@ -1750,7 +1635,7 @@ def phase_report(state) -> None:
         f"{sum(g['reserved_growth'] for g in graphs.values()) / 2**30:.3f} GiB in all; "
         f"torch.cuda.memory_reserved now {torch.cuda.memory_reserved() / 2**30:.3f} GiB, "
         f"max {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB")
-    log(json.dumps({"graphs": graphs, "syncs": state["syncs"], "alternate": state["alternate"]}))
+    log(json.dumps({"graphs": graphs, "syncs": state["syncs"]}))
     with Phase("report"):
         kernels = time_kernels(state)
     log(json.dumps({"kernels": kernels}))

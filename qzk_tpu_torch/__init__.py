@@ -9,7 +9,7 @@ Layout (mirrors qzk_tpu):
   ops/      — field, Poseidon, NTT, Merkle, the zk threefry stream
               (numpy oracles, torch device code, and the hand-written
               CUDA kernels in ops/csrc)
-  plonk/    — circuit builder, witness generation, the staged device
+  plonk/    — circuit builder, witness generation, the fused device
               prover, the host verifier, configs
   models/   — the Wormhole circuit and its session APIs; the voting
               circuit

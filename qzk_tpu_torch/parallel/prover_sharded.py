@@ -31,7 +31,7 @@ bytes.  One process drives every shard (parallel/sharded.py):
             single-device prover context.
 
 The stages are staged, not fused: Fiat-Shamir runs on the host between
-them, as in the JAX package's sharded path and the staged device path.
+them, as in the JAX package's sharded path.
 Between stages, XLA's implicit re-shardings of the JAX package become
 explicit exchanges: the Zs columns go from point to row sharding by an
 all_to_all, the quotient rows from factor to row sharding by

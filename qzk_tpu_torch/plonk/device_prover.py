@@ -2,31 +2,19 @@
 
 Same protocol as the JAX package's ``device_prove``
 (qzk_tpu/plonk/device_prover.py), and byte-identical proofs: identical
-transcripts, commitments and FRI queries.  Two paths:
-
-  fused (the default): ``full_pipeline`` runs the whole post-witness
-    prove as one function of the uploaded wire matrix, the public-input
-    hash and the three zk salts: wires commit, the Fiat-Shamir
-    transcript on the device (DeviceChallenger), zs, quotient,
-    openings, FRI input, FRI layers, the final polynomial, the first
-    PoW batch, the query indices and every query gather.  On the card
-    it is one CUDA graph replay a prove (captured once per context and
-    config); on the CPU the same function runs eagerly.  One download
-    follows.  ``_fused_prove`` rebuilds the host challenger from the
-    device's, checks the PoW witness and the query indices against it,
-    and grinds on the host only when the batch held no PoW hit.
-  staged (QZK_FUSED=0): the host keeps the challenger
-    (ops/transcript.py) and downloads each cap, the openings, the FRI
-    final polynomial and the query rounds as the transcript needs them:
-
-      wires        -> [iNTT -> coset LDE -> Merkle levels]
-      betas/gammas -> [permutation Zs -> LDE -> Merkle levels]
-      alphas       -> [vanishing eval -> /Z_H -> quotient coeffs
-                       -> LDE -> Merkle levels + degree check]
-      zeta         -> [openings at zeta / g*zeta]
-      fri alpha    -> [FRI input polynomial G]
-      FRI commit:  per layer [leaves + levels] and [fold]
-      PoW grind on the device; query-round data gathered on the device.
+transcripts, commitments and FRI queries.  One path:
+``full_pipeline`` runs the whole post-witness prove as one function of
+the uploaded wire matrix, the public-input hash and the three zk salts:
+wires commit, the Fiat-Shamir transcript on the device
+(DeviceChallenger), zs, quotient, openings, FRI input, FRI layers, the
+final polynomial, the first PoW batch, the query indices and every query
+gather.  On the card it is one CUDA graph replay a prove (captured once
+per context and config); on the CPU the same function runs eagerly.  One
+download follows.  ``_fused_prove`` rebuilds the host challenger from
+the device's, checks the PoW witness and the query indices against it,
+and, when the first batch held no PoW hit, grinds on from the batch's
+end on the permutation kernel (grind_pow), re-derives the indices on the
+host and gathers the query rounds again.
 
 Merkle hashing runs on the CUDA row sponge (K1) and every permutation
 (the PoW batch, the device challenger's duplexes) on the CUDA
@@ -428,11 +416,6 @@ class DeviceProverContext:
         coeffs = self.ntt_n.intt(values)
         lde = nfs.coset_lde(coeffs, self.common.config.fri_config.rate_bits, self.shift_n)
         return (coeffs, lde, *self.commit_leaves_raw(lde.T, salt))
-
-    def commit(self, values: torch.Tensor, salt=None):
-        """commit_raw with the tree as a DeviceTree (its cap downloaded)."""
-        coeffs, lde, leaves, levels = self.commit_raw(values, salt)
-        return coeffs, lde, DeviceTree.from_levels(leaves, levels)
 
     def zs_stage(self, w_routed, betas, gammas):
         """(N, 80) routed wires -> (num_zs_pp, N) Z / partial-product
@@ -881,12 +864,6 @@ def _rounds_from_data(oracle_data, step_data, Q):
     return rounds
 
 
-def fused_wanted() -> bool:
-    """The fused pipeline unless QZK_FUSED=0 asks for the staged one.
-    Neither path falls back to the other: an error raises."""
-    return os.environ.get("QZK_FUSED", "1") != "0"
-
-
 def _fused_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
                  mark) -> ProofWithPublicInputs:
     """device_prove through full_pipeline (counterpart of the JAX
@@ -899,7 +876,7 @@ def _fused_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
     fri_cfg = cfg.fri_config
     arities = fri_cfg.reduction_arity_bits(common.degree_bits)
     salted = cfg.zero_knowledge
-    # drawn in the staged path's order: wires, zs, quotient
+    # drawn in the blinding stream's order: wires, zs, quotient
     salts = tuple(fresh_salt(common.lde_size) for _ in range(3))
     with spans.span("fused.upload"):
         wire_matrix = ctx.assemble_wires(values, blind_block)
@@ -979,149 +956,8 @@ def device_prove(common, prover_only, values, blind_block, public_inputs, pi_has
     witness values.  Called by plonk.prover.prove, which passes the zk
     blind block (or None) and fresh_salt(n_leaves), the next (n, 4)
     salt of the blinding stream (None without zero knowledge): drawn
-    for the wires, the zs and the quotient, in that order.  The fused
-    pipeline unless QZK_FUSED=0 (fused_wanted)."""
+    for the wires, the zs and the quotient, in that order."""
     mark = timer.mark if timer is not None else (lambda name: None)
     ctx = get_context(common, prover_only, device)
-    if fused_wanted():
-        return _fused_prove(ctx, values, blind_block, public_inputs, pi_hash,
-                            fresh_salt, mark)
-    return _staged_prove(ctx, values, blind_block, public_inputs, pi_hash,
-                         fresh_salt, mark)
-
-
-def _staged_prove(ctx, values, blind_block, public_inputs, pi_hash, fresh_salt,
-                  mark) -> ProofWithPublicInputs:
-    """The staged pipeline: the host challenger, a download at every
-    transcript step."""
-    common = ctx.common
-    device = ctx.device
-    cfg = common.config
-    fri_cfg = cfg.fri_config
-
-    def dev(a):
-        return gt.from_u64(np.asarray(a, dtype=np.uint64), device)
-
-    # 2. commit wires ---------------------------------------------------------
-    wire_matrix = ctx.assemble_wires(values, blind_block)  # (N, 135)
-    wires_coeffs, wires_lde, wires_tree = ctx.commit(
-        wire_matrix.T, fresh_salt(common.lde_size)
-    )
-    mark("wires")
-
-    challenger = Challenger()
-    challenger.observe_elements(common.circuit_digest)
-    challenger.observe_elements(pi_hash)
-    challenger.observe_cap(wires_tree.cap)
-    betas = challenger.get_n_challenges(cfg.num_challenges)
-    gammas = challenger.get_n_challenges(cfg.num_challenges)
-
-    # 3. permutation argument -------------------------------------------------
-    zs_pp = ctx.zs_stage(
-        wire_matrix[:, : cfg.num_routed_wires], dev(betas), dev(gammas)
-    )
-    zs_coeffs, zs_lde, zs_tree = ctx.commit(zs_pp, fresh_salt(common.lde_size))
-    mark("zs")
-    challenger.observe_cap(zs_tree.cap)
-    alphas = challenger.get_n_challenges(cfg.num_challenges)
-
-    # 4. quotient -------------------------------------------------------------
-    quotient_coeffs, quotient_lde, tail_ok = ctx.quotient_stage(
-        wires_lde, zs_lde, dev(pi_hash), dev(betas), dev(gammas), dev(alphas)
-    )
-    if not bool(tail_ok):
-        raise ValueError(
-            "constraints unsatisfied: quotient degree overflow "
-            "(witness does not satisfy the circuit)"
-        )
-    quotient_tree = ctx._commit_leaves(quotient_lde.T, fresh_salt(common.lde_size))
-    mark("quotient")
-    challenger.observe_cap(quotient_tree.cap)
-    zeta = challenger.get_extension_challenge()
-
-    # 5. openings -------------------------------------------------------------
-    g = np.uint64(common.subgroup_generator())
-    zeta_right = gl.ext_mul(zeta, gl.ext(g, np.uint64(0)))
-    opened = ctx.openings_stage(
-        wires_coeffs, zs_coeffs, quotient_coeffs, dev(zeta), dev(zeta_right)
-    )
-    openings = Openings(
-        preprocessed=gt.to_u64(opened[0]),
-        wires=gt.to_u64(opened[1]),
-        zs_partial=gt.to_u64(opened[2]),
-        quotient=gt.to_u64(opened[3]),
-        zs_partial_right=gt.to_u64(opened[4]),
-    )
-    mark("openings")
-    for _tag, vals in openings.batches():
-        challenger.observe_elements(vals.ravel())
-    fri_alpha = challenger.get_extension_challenge()
-
-    # FRI input polynomial ------------------------------------------------------
-    zeta_claims = np.concatenate(
-        [openings.preprocessed, openings.wires, openings.zs_partial, openings.quotient]
-    )
-    apows_all = gl.ext_powers_vec(fri_alpha, zeta_claims.shape[0])
-    apows_zs = gl.ext_powers_vec(fri_alpha, openings.zs_partial_right.shape[0])
-
-    def reduce_claims(claims):
-        rc = np.zeros(2, dtype=np.uint64)
-        for i in range(claims.shape[0] - 1, -1, -1):
-            rc = gl.ext_mul(rc, fri_alpha)
-            rc = gl.ext_add(rc, claims[i])
-        return rc
-
-    G = ctx.fri_input_stage(
-        wires_lde, zs_lde, quotient_lde,
-        dev(apows_all), dev(reduce_claims(zeta_claims)), dev(zeta),
-        dev(apows_zs), dev(reduce_claims(openings.zs_partial_right)), dev(zeta_right),
-    )
-    mark("fri input")
-
-    # FRI commit phase ----------------------------------------------------------
-    arities = fri_cfg.reduction_arity_bits(common.degree_bits)
-    shift = gl.GENERATOR
-    values_f = G
-    layer_trees, layer_values, groups = [], [], []
-    for ab in arities:
-        A = 1 << ab
-        M = values_f.shape[0]
-        cap_h = fri_mod._layer_cap_height(fri_cfg, M // A)
-        commit_layer, fold_layer, group = ctx.fri_layer(M, ab, shift, cap_h)
-        tree = DeviceTree.from_levels(*commit_layer(values_f))
-        challenger.observe_cap(tree.cap)
-        beta = challenger.get_extension_challenge()
-        layer_trees.append(tree)
-        layer_values.append(values_f)
-        groups.append(group)
-        values_f = fold_layer(values_f, dev(beta))
-        shift = pow(shift, A, gl.P)
-    final_dev, final_ok = ctx.final_poly(values_f, shift)
-    if not bool(final_ok):
-        raise RuntimeError("FRI final poly degree too high")
-    final_poly = gt.to_u64(final_dev)
-    challenger.observe_elements(final_poly.ravel())
-    pow_witness = ctx.grind_pow(challenger, fri_cfg.proof_of_work_bits)
-    mark("fri layers + pow")
-
-    # query rounds ----------------------------------------------------------------
-    indices = challenger.get_indices(fri_cfg.num_query_rounds, common.lde_bits)
-    oracles = [ctx.pre_tree, wires_tree, zs_tree, quotient_tree]
-    rounds = _assemble_query_rounds(
-        groups, arities, oracles, layer_values, layer_trees, indices
-    )
-    mark("queries")
-
-    proof = Proof(
-        wires_cap=wires_tree.cap,
-        zs_partial_cap=zs_tree.cap,
-        quotient_cap=quotient_tree.cap,
-        openings=openings,
-        fri=FriProof(
-            commit_phase_caps=[t.cap for t in layer_trees],
-            final_poly=final_poly,
-            pow_witness=pow_witness,
-            query_rounds=rounds,
-        ),
-    )
-    return ProofWithPublicInputs(proof=proof, public_inputs=public_inputs)
+    return _fused_prove(ctx, values, blind_block, public_inputs, pi_hash,
+                        fresh_salt, mark)

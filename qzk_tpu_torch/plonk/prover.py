@@ -8,10 +8,12 @@ SURVEY.md §3.1 steps 1-5):
      divide by Z_H, split, commit                          }  kernels)
   5. openings at zeta / g*zeta + batched FRI opening proof }
 
-Steps 2-5 run in plonk/device_prover.py on the device the caller names:
-CUDA by default, the CPU when asked (the plain torch versions of the
-kernels then run).  With a mesh active (qzk_tpu_torch.parallel.set_mesh,
-or QZK_SHARD=N) of more than one shard, they run sharded over it
+Steps 2-5 run in plonk/device_prover.py as one fused pipeline on the
+device the caller names: CUDA by default, one CUDA graph replay a warm
+prove; the CPU when asked (the same function runs eagerly, through the
+plain torch versions of the kernels).  With a mesh active
+(qzk_tpu_torch.parallel.set_mesh, or QZK_SHARD=N) of more than one
+shard, they run sharded over it
 (parallel/prover_sharded.py) when the circuit meets the mesh's
 preconditions, else on its first device after a RuntimeWarning; the
 mesh's devices then decide where the proof runs.  Under zero knowledge,

@@ -1,26 +1,25 @@
 """Device profile of one warm prove on the card, through torch.profiler
 (counterpart of the JAX package's tools/profile_prover.py).
 
-    python3 -m qzk_tpu_torch.tools.profile_prover [--staged] [--top 25]
+    python3 -m qzk_tpu_torch.tools.profile_prover [--top 25]
         [--outdir DIR] [--circuit wormhole|small] [--device cuda]
 
 Builds the zk Wormhole circuit (``standard_recursion_zk_config()``,
-``synthetic_circuit_inputs()``), proves once to warm up (on the fused
-path this captures the context's CUDA graph) and verifies, then proves
+``synthetic_circuit_inputs()``), proves once to warm up (on the card
+this captures the context's CUDA graph) and verifies, then proves
 once more inside ``torch.profiler.profile`` with CPU and CUDA
 activities, the prove wrapped in the range ``qzk_prove``.  It exports
-the chrome trace to DIR/prove_{fused,staged}.json, prints summarize()'s
-table, and one JSON line: the device time by kernel name, the count of
+the chrome trace to DIR/prove_fused.json, prints summarize()'s table,
+and one JSON line: the device time by kernel name, the count of
 device events and of kernels, the device's busy time (the union of its
 events' intervals), the window (the ``qzk_prove`` range) and the idle
 share of that window, beside the card's name and power limit; and the
 device's idle gaps named by the innermost program span (utils/spans.py,
 whose spans the profiler records as ``record_function`` ranges) running
 on the host at each gap's midpoint.
-``--staged`` sets QZK_FUSED=0, the staged pipeline.  ``--circuit
-small`` proves a 2^3-row circuit instead, and ``--device cpu`` runs on
-the CPU (plumbing only: the trace then holds no device lane, and the
-record says "device": "cpu").
+``--circuit small`` proves a 2^3-row circuit instead, and ``--device
+cpu`` runs on the CPU (plumbing only: the trace then holds no device
+lane, and the record says "device": "cpu").
 """
 
 from __future__ import annotations
@@ -257,16 +256,11 @@ def card_name(device) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--staged", action="store_true",
-                    help="profile the staged pipeline (QZK_FUSED=0)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--outdir", default=os.path.join("chiprun_out", "profile"))
     ap.add_argument("--circuit", choices=("wormhole", "small"), default="wormhole")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.staged:
-        os.environ["QZK_FUSED"] = "0"
-    path = "staged" if args.staged else "fused"
 
     import torch
 
@@ -277,11 +271,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     verify(prove_once())
     print(f"warm-up prove and verify: {time.perf_counter() - t0:.3f} s", flush=True)
-    trace = os.path.join(args.outdir, f"prove_{path}.json")
+    trace = os.path.join(args.outdir, "prove_fused.json")
     seconds = profile_prove(prove_once, trace, device)
-    print(f"profiled prove ({path}): {seconds:.4f} s on the host clock; trace {trace}")
+    print(f"profiled prove: {seconds:.4f} s on the host clock; trace {trace}")
     rec = summarize(trace, top=args.top)
-    rec.update(path=path, circuit=args.circuit, prove_s=seconds, device=device.type,
+    rec.update(circuit=args.circuit, prove_s=seconds, device=device.type,
                card=card_name(device), torch=torch.__version__)
     print(json.dumps(rec))
     return 0

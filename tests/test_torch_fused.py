@@ -5,13 +5,12 @@ eagerly through the kernels' plain versions.
 - The torch DeviceChallenger against the JAX package's DeviceChallenger
   (run eagerly) and the host Challenger, over seeded random schedules.
 - The fused proof of test_torch_prover.py's small circuit, under both
-  configs, byte for byte the JAX package's and the staged path's.
+  configs, byte for byte the JAX package's.
 - A PoW batch that holds no hit takes the host grind, with the same
   bytes; a bad witness raises ValueError.
 - full_pipeline's body makes no host transfer and no synchronisation:
   nothing that would break a CUDA graph capture on the card.
-- Path selection (QZK_FUSED) without a fallback, and the launch
-  counting of a captured graph's replays.
+- The launch counting of a captured graph's replays.
 """
 
 import numpy as np
@@ -177,30 +176,24 @@ def _build(builder_mod, config_mod, witness_mod, zk=False, x0=1000):
 
 @pytest.fixture(scope="module", params=[False, True], ids=["nonzk", "zk"])
 def sides(request):
-    """(JAX proof, port data, port witness, staged proof, fused proof,
-    fused timer) of the small circuit under one config."""
+    """(JAX proof, port data, port witness, fused proof, fused timer) of
+    the small circuit under one config."""
     zk = request.param
     jdata, jpw = _build(jbuilder, jconfig, jwitness, zk)
     tdata, tpw = _build(tbuilder, tconfig, twitness, zk)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("QZK_FUSED", "0")
-        staged = tdata.prove(tpw, device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.delenv("QZK_FUSED", raising=False)
-        timer = PhaseTimer()
-        fused = tdata.prove(tpw, device="cpu", timer=timer)
-    return jdata.prove(jpw), tdata, tpw, staged, fused, timer
+    timer = PhaseTimer()
+    fused = tdata.prove(tpw, device="cpu", timer=timer)
+    return jdata.prove(jpw), tdata, tpw, fused, timer
 
 
-def test_fused_proof_bytes_match_jax_and_staged(sides):
-    jproof, tdata, _, staged, fused, _ = sides
+def test_fused_proof_bytes_match_jax(sides):
+    jproof, tdata, _, fused, _ = sides
     assert fused.to_bytes() == jproof.to_bytes()
-    assert fused.to_bytes() == staged.to_bytes()
     tdata.verify(fused)
 
 
 def test_fused_timer_marks(sides):
-    _, tdata, _, _, _, timer = sides
+    _, tdata, _, _, timer = sides
     names = [name for name, _ in timer.results()]
     assert names == (["witness"] + (["blinding"] if tdata.common.config.zero_knowledge else [])
                      + ["fused pipeline (device, 1 dispatch)", "PoW finalize (host)",
@@ -208,12 +201,12 @@ def test_fused_timer_marks(sides):
 
 
 def test_pow_batch_miss_takes_the_host_grind(sides, monkeypatch):
-    """A first PoW batch below the first hit (the staged proof's
+    """A first PoW batch below the first hit (the fused proof's
     witness) holds no hit: the host grinds on from the batch's end,
     re-derives the indices, re-gathers, and gives the same bytes."""
-    _, tdata, tpw, staged, _, _ = sides
+    _, tdata, tpw, fused, _ = sides
     ctx = tdata.prover_only._torch_ctxs["cpu"]
-    first_hit = staged.proof.fri.pow_witness
+    first_hit = fused.proof.fri.pow_witness
     assert first_hit > 0
     grinds = []
     real = ctx.grind_pow
@@ -222,13 +215,12 @@ def test_pow_batch_miss_takes_the_host_grind(sides, monkeypatch):
                         lambda ch, bits, start=0: grinds.append(start) or real(ch, bits, start))
     again = tdata.prove(tpw, device="cpu")
     assert grinds == [first_hit]
-    assert again.to_bytes() == staged.to_bytes()
+    assert again.to_bytes() == fused.to_bytes()
 
 
-def test_bad_witness_raises_on_the_fused_path(monkeypatch):
+def test_bad_witness_raises_on_the_fused_path():
     """Witness values that satisfy no constraint (each one more than the
     generators' value) make the quotient's tail nonzero: ValueError."""
-    monkeypatch.delenv("QZK_FUSED", raising=False)
     data, pw = _build(tbuilder, tconfig, twitness)
     values, _ = twitness.run_generators(data.prover_only.plan, pw)
     bad = gl.add(values, np.uint64(1))
@@ -275,7 +267,7 @@ def test_full_pipeline_body_makes_no_transfer(sides, monkeypatch):
     """After a prove (its run is the warm-up a capture follows), the body
     runs with every host<->device helper patched to raise and under a
     dispatch mode that records host data and host reads."""
-    _, data, pw, _, _, _ = sides
+    _, data, pw, _, _ = sides
     zk = data.common.config.zero_knowledge
     ctx = dp.get_context(data.common, data.prover_only, "cpu")
     monkeypatch.setattr(ctx, "pow_batch", 1 << 6)
@@ -302,39 +294,7 @@ def test_full_pipeline_body_makes_no_transfer(sides, monkeypatch):
     assert {"tail_ok", "final_ok", "qidx", "pow_hit", "cap_wires", "rows_pre"} <= set(names)
 
 
-# -- path selection and launch counting ------------------------------------------------
-
-
-def test_fused_is_the_default_and_qzk_fused_0_selects_staged(monkeypatch):
-    monkeypatch.delenv("QZK_FUSED", raising=False)
-    assert dp.fused_wanted()
-    monkeypatch.setenv("QZK_FUSED", "1")
-    assert dp.fused_wanted()
-    monkeypatch.setenv("QZK_FUSED", "0")
-    assert not dp.fused_wanted()
-
-
-@pytest.mark.parametrize("flag", [None, "0"])
-def test_no_fallback_between_paths(flag, monkeypatch):
-    """An error on either path raises; the other path is not tried."""
-    if flag is None:
-        monkeypatch.delenv("QZK_FUSED", raising=False)
-    else:
-        monkeypatch.setenv("QZK_FUSED", flag)
-    calls = []
-
-    def fail(name):
-        def f(*args, **kwargs):
-            calls.append(name)
-            raise RuntimeError(f"{name} failed")
-        return f
-
-    monkeypatch.setattr(dp, "_fused_prove", fail("fused"))
-    monkeypatch.setattr(dp, "_staged_prove", fail("staged"))
-    data, pw = _build(tbuilder, tconfig, twitness)
-    with pytest.raises(RuntimeError):
-        data.prove(pw, device="cpu")
-    assert calls == (["fused"] if flag is None else ["staged"])
+# -- launch counting ------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("mod, key, shape", [

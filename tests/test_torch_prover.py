@@ -26,6 +26,7 @@ from qzk_tpu.utils.serialization import common_to_bytes
 from qzk_tpu_torch.benches.prove import time_proves
 from qzk_tpu_torch.convert import from_jax_circuit_data
 from qzk_tpu_torch.ops import goldilocks as gl
+from qzk_tpu_torch.plonk import device_prover as dp
 from qzk_tpu_torch.plonk.fri import VerificationError
 from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_stream
 
@@ -64,15 +65,20 @@ def jax_side():
     return data, data.prove(pw)
 
 
+def _cheap_pow(data):
+    """A first PoW batch of 2^6 candidates on the CPU: the prove grinds
+    on the host in small batches, with the same bytes
+    (tests/test_torch_fused.py::test_pow_batch_miss_takes_the_host_grind)."""
+    dp.get_context(data.common, data.prover_only, "cpu").pow_batch = 1 << 6
+
+
 @pytest.fixture(scope="module")
 def torch_side():
-    """The staged path's proof and phases (QZK_FUSED=0); the fused
-    path's are tests/test_torch_fused.py's."""
+    """The port's proof and phases."""
     data, pw = _build(tbuilder, tconfig, twitness)
+    _cheap_pow(data)
     timer = PhaseTimer()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("QZK_FUSED", "0")
-        proof = data.prove(pw, device="cpu", timer=timer)
+    proof = data.prove(pw, device="cpu", timer=timer)
     return data, proof, timer
 
 
@@ -116,8 +122,8 @@ def test_port_verifier_accepts_and_rejects(torch_side, jax_side):
 def test_timer_sees_every_phase(torch_side):
     names = [name for name, _ in torch_side[2].results()]
     assert names == [
-        "witness", "wires", "zs", "quotient", "openings", "fri input",
-        "fri layers + pow", "queries",
+        "witness", "fused pipeline (device, 1 dispatch)", "PoW finalize (host)",
+        "FRI queries (in-dispatch gathers)",
     ]
 
 
@@ -125,17 +131,16 @@ def test_timer_sees_every_phase(torch_side):
 def zk_sides():
     jdata, jpw = _build(jbuilder, jconfig, jwitness, zk=True)
     tdata, tpw = _build(tbuilder, tconfig, twitness, zk=True)
+    _cheap_pow(tdata)
     timer = PhaseTimer()
-    with pytest.MonkeyPatch.context() as mp:  # the staged path, as torch_side
-        mp.setenv("QZK_FUSED", "0")
-        tproof = tdata.prove(tpw, device="cpu", timer=timer)
+    tproof = tdata.prove(tpw, device="cpu", timer=timer)
     return jdata, jdata.prove(jpw), tdata, tpw, tproof, timer
 
 
 def test_zero_knowledge_timer_sees_the_blinding_phase(zk_sides):
     assert [name for name, _ in zk_sides[5].results()] == [
-        "witness", "blinding", "wires", "zs", "quotient", "openings", "fri input",
-        "fri layers + pow", "queries",
+        "witness", "blinding", "fused pipeline (device, 1 dispatch)", "PoW finalize (host)",
+        "FRI queries (in-dispatch gathers)",
     ]
 
 
@@ -175,8 +180,7 @@ def test_zero_knowledge_flipped_salt_word_is_rejected(zk_sides):
 
 def test_proof_hash_is_stable(torch_side):
     """Proving twice gives the same bytes (the prover is deterministic
-    in non-zk mode, and the device context is reused); the second prove
-    takes the default, fused path."""
+    in non-zk mode, and the device context is reused)."""
     data, proof, _ = torch_side
     _, pw = _build(tbuilder, tconfig, twitness)
     again = data.prove(pw, device="cpu")

@@ -204,7 +204,8 @@ def test_bad_witness_raises(port_side, monkeypatch):
 def test_sixteen_shards_warn_and_prove_single_device(jax_side, port_side, monkeypatch):
     """A 16-shard mesh does not divide the quotient factor (8): both
     packages warn and prove on one device (the port on the mesh's first,
-    through the staged path here)."""
+    with a first PoW batch of 2^6 candidates, so that it grinds on the
+    host in small batches)."""
     jparallel.set_mesh(types.SimpleNamespace(devices=np.empty(16, dtype=object)))
     try:
         with pytest.warns(RuntimeWarning, match="falling back to the single-device pipeline"):
@@ -212,7 +213,8 @@ def test_sixteen_shards_warn_and_prove_single_device(jax_side, port_side, monkey
     finally:
         jparallel.set_mesh(None)
     assert jproof.to_bytes() == jax_side.single.to_bytes()
-    monkeypatch.setenv("QZK_FUSED", "0")
+    ctx = dp.get_context(port_side.data.common, port_side.data.prover_only, "cpu")
+    monkeypatch.setattr(ctx, "pow_batch", 1 << 6)
     before = ps.PROVES["sharded_prove"]
     with pytest.warns(RuntimeWarning, match="falling back to the single-device pipeline"):
         proof = prove_on_mesh(port_side.data, port_side.x, cpu_mesh(16))

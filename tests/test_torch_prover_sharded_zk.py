@@ -17,6 +17,7 @@ import qzk_tpu_torch.plonk.config as tconfig
 import qzk_tpu_torch.plonk.witness as twitness
 from qzk_tpu_torch.ops import goldilocks as gl
 from qzk_tpu_torch.parallel import prover_sharded as ps
+from qzk_tpu_torch.plonk import device_prover as dp
 from qzk_tpu_torch.plonk.fri import VerificationError
 
 from test_torch_prover_sharded import build_chain_circuit, cpu_mesh, prove_on_mesh, witness
@@ -40,9 +41,10 @@ def test_sharded_zk_proof_matches_single_device(monkeypatch):
     proof = prove_on_mesh(data, x, cpu_mesh(4))
     assert ps.PROVES["sharded_prove"] == before + 1
     assert proof.to_bytes() == jproof.to_bytes()
-    # the port's single-device zk proof (the staged path: its PoW grind
-    # takes small batches on the CPU)
-    monkeypatch.setenv("QZK_FUSED", "0")
+    # the port's single-device zk proof (a first PoW batch of 2^6
+    # candidates: the grind goes on on the host in small batches)
+    ctx = dp.get_context(data.common, data.prover_only, "cpu")
+    monkeypatch.setattr(ctx, "pow_batch", 1 << 6)
     single = data.prove(witness(twitness, x), device="cpu")
     assert proof.to_bytes() == single.to_bytes()
     data.verify(proof)

@@ -4,8 +4,8 @@ the aggregation, on the CPU, on test_torch_fused.py's small circuit:
 - without a timer nothing is recorded and no span site reads a clock;
 - with one, the proof's bytes are the same, the marks keep their names
   and order, and the spans form one request whose phases end at the
-  marks;
-- the fused path's lock wait covers a lock another thread holds;
+  marks, whether the first PoW batch holds the hit or the host grinds;
+- the prove's lock wait covers a lock another thread holds;
 - a level's chunks that fan out record their spans in the worker
   threads, in the caller's request, and forward no mark; the sequential
   path forwards them;
@@ -33,13 +33,11 @@ from qzk_tpu_torch.plonk import device_prover as dp
 from qzk_tpu_torch.utils import spans
 
 CPU = torch.device("cpu")
-# a first PoW batch this short misses, so the fused proves grind on the
-# host (pow.grind) as a proof past the card's first batch does
+# a first PoW batch this short misses, so the proves grind on the host
+# (pow.grind) as a proof past the card's first batch does
 POW_BATCH = 1 << 6
-FUSED_MARKS = ["fused pipeline (device, 1 dispatch)", "PoW finalize (host)",
-               "FRI queries (in-dispatch gathers)"]
-STAGED_MARKS = ["wires", "zs", "quotient", "openings", "fri input", "fri layers + pow",
-                "queries"]
+MARKS = ["fused pipeline (device, 1 dispatch)", "PoW finalize (host)",
+         "FRI queries (in-dispatch gathers)"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -91,19 +89,36 @@ def circuits():
     return {zk: _build(zk) for zk in (False, True)}
 
 
+@pytest.fixture(scope="module")
+def first_hits():
+    """zk -> the small circuit's PoW witness, the first candidate with a
+    hit, as a grind case finds it."""
+    return {}
+
+
+def _pow_witness(data, pw, ctx):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ctx, "pow_batch", POW_BATCH)
+        return data.prove(pw, device=CPU).proof.fri.pow_witness
+
+
 @pytest.fixture(scope="module", params=[(True, False), (True, True), (False, False),
                                         (False, True)],
-                ids=["fused-nonzk", "fused-zk", "staged-nonzk", "staged-zk"])
-def case(request, circuits):
-    """(fused, zk, data, the proof without a timer, the proof with one,
+                ids=["grind-nonzk", "grind-zk", "batch-nonzk", "batch-zk"])
+def case(request, circuits, first_hits):
+    """(grinds, zk, data, the proof without a timer, the proof with one,
     the timer) of the small circuit; the proof without a timer is made
-    with every piece of the recorder raising."""
-    fused, zk = request.param
+    with every piece of the recorder raising.  A grind case's first PoW
+    batch is POW_BATCH candidates, short of the first hit, so the host
+    grinds on; another's ends just past the first hit, which the device
+    finds in its batch."""
+    grinds, zk = request.param
     data, pw = circuits[zk]
     ctx = dp.get_context(data.common, data.prover_only, CPU)
+    if not grinds and zk not in first_hits:
+        first_hits[zk] = _pow_witness(data, pw, ctx)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("QZK_FUSED", "1" if fused else "0")
-        mp.setattr(ctx, "pow_batch", POW_BATCH)
+        mp.setattr(ctx, "pow_batch", POW_BATCH if grinds else first_hits[zk] + 1)
         with pytest.MonkeyPatch.context() as off:
             for name in ("_Open", "_Locked", "Phases", "Span", "_Request"):
                 off.setattr(spans, name, _raiser)
@@ -111,7 +126,9 @@ def case(request, circuits):
             plain = data.prove(pw, device=CPU)
         timer = Recorder()
         traced = data.prove(pw, device=CPU, timer=timer)
-    return fused, zk, data, plain, traced, timer
+    if grinds:
+        first_hits[zk] = plain.proof.fri.pow_witness
+    return grinds, zk, data, plain, traced, timer
 
 
 def test_a_timer_leaves_the_proof_bytes(case):
@@ -121,13 +138,12 @@ def test_a_timer_leaves_the_proof_bytes(case):
 
 
 def test_marks_keep_their_names_and_order(case):
-    fused, zk, _, _, _, timer = case
-    assert [n for n, _ in timer.marks] == (
-        ["witness"] + (["blinding"] if zk else []) + (FUSED_MARKS if fused else STAGED_MARKS))
+    _, zk, _, _, _, timer = case
+    assert [n for n, _ in timer.marks] == ["witness"] + (["blinding"] if zk else []) + MARKS
 
 
 def test_spans_form_one_request_ending_the_phases_at_the_marks(case):
-    fused, zk, data, _, traced, timer = case
+    grinds, zk, data, _, traced, timer = case
     recorded = spans.spans_of(timer)
     root = recorded[0]
     assert root.name == "prove" and root.parent is None and root.attrs == {"card": "cpu"}
@@ -149,16 +165,15 @@ def test_spans_form_one_request_ending_the_phases_at_the_marks(case):
     assert names.count("blinding.draw") == (draws if zk else 0)
     fused_spans = ["fused.upload", "fused.lock_wait", "fused.lock_held", "fused.replay",
                    "fused.download"]
-    assert [names.count(n) for n in fused_spans] == [1 if fused else 0] * 5
-    grinds = traced.proof.fri.pow_witness >= POW_BATCH
-    assert names.count("pow.grind") == (1 if fused and grinds else 0)
-    if fused:
-        by = {s.name: s for s in recorded}
-        held = by["fused.lock_held"]
-        assert by["fused.lock_wait"].end <= held.start
-        for inner in ("fused.replay", "fused.download") + (("pow.grind",) if grinds else ()):
-            assert by[inner].parent is held
-        assert by["fused.replay"].device_ms is None  # no device time on the CPU
+    assert [names.count(n) for n in fused_spans] == [1] * 5
+    assert not grinds or traced.proof.fri.pow_witness >= POW_BATCH
+    assert names.count("pow.grind") == (1 if grinds else 0)
+    by = {s.name: s for s in recorded}
+    held = by["fused.lock_held"]
+    assert by["fused.lock_wait"].end <= held.start
+    for inner in ("fused.replay", "fused.download") + (("pow.grind",) if grinds else ()):
+        assert by[inner].parent is held
+    assert by["fused.replay"].device_ms is None  # no device time on the CPU
 
 
 def test_lock_wait_covers_a_lock_held_elsewhere(circuits, monkeypatch):
@@ -166,7 +181,6 @@ def test_lock_wait_covers_a_lock_held_elsewhere(circuits, monkeypatch):
     it, then 0.2 s more: the prove's lock wait spans that time."""
     data, pw = circuits[False]
     ctx = dp.get_context(data.common, data.prover_only, CPU)
-    monkeypatch.setenv("QZK_FUSED", "1")
     monkeypatch.setattr(ctx, "pow_batch", POW_BATCH)
     timer = Recorder()
     out = {}
