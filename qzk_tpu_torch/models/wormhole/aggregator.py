@@ -48,6 +48,7 @@ from ...plonk.builder import CircuitBuilder
 from ...plonk.circuit_data import CircuitData, VerifierCircuitData
 from ...plonk.config import CircuitConfig
 from ...plonk.proof import ProofWithPublicInputs
+from ...plonk.prover import Front, prove_front
 from ...plonk.witness import PartialWitness
 from ...utils import spans
 from ...utils.device import resolve_device
@@ -202,12 +203,9 @@ def _build_chunk_circuit_uncached(common, branching: int) -> _ChunkCircuit:
     )
 
 
-def _prove_chunk(
-    circuit: _ChunkCircuit, chunk: list, verifier_only, device=None, timer=None
-) -> AggregatedProof:
-    """Fill the chunk circuit's witness from the child proofs (the span
-    "aggregation.fill") and prove it on `device`, with `timer` (a
-    plonk.prover.PhaseTimer) marking the prove's phases when given."""
+def _fill(circuit: _ChunkCircuit, chunk: list, verifier_only) -> PartialWitness:
+    """The chunk circuit's partial witness from the child proofs (the
+    span "aggregation.fill")."""
     pw = PartialWitness()
     with spans.span("aggregation.fill"):
         rec.set_verifier_data_target(
@@ -216,7 +214,29 @@ def _prove_chunk(
         assert len(chunk) == len(circuit.proof_targets)
         for pt, proof in zip(circuit.proof_targets, chunk):
             rec.set_proof_with_pis_target(pw, pt, proof)
-    proof = circuit.data.prove(pw, device=device, timer=timer)
+    return pw
+
+
+def _chunk_front(circuit: _ChunkCircuit, chunk: list, verifier_only) -> Front:
+    """The host front of a chunk prove (plonk/prover.py::prove_front):
+    the fill, the generators, the public inputs and their hash, the
+    blinding seed.  No CUDA call, so it may run beside another chunk's
+    device part."""
+    pw = _fill(circuit, chunk, verifier_only)
+    return prove_front(circuit.data.common, circuit.data.prover_only, pw)
+
+
+def _prove_chunk(
+    circuit: _ChunkCircuit, chunk: list, verifier_only, device=None, timer=None,
+    front: Front | None = None,
+) -> AggregatedProof:
+    """Prove the chunk circuit over the child proofs `chunk` on `device`,
+    with `timer` (a plonk.prover.PhaseTimer) marking the prove's phases
+    when given.  From `front` (_chunk_front) when the caller made it
+    beforehand; else the witness is filled here and the generators run
+    inside the prove."""
+    pw = None if front is not None else _fill(circuit, chunk, verifier_only)
+    proof = circuit.data.prove(pw, device=device, timer=timer, front=front)
     return AggregatedProof(proof=proof, circuit_data=circuit.data)
 
 
@@ -226,9 +246,10 @@ def _agg_workers(n_chunks: int, device: torch.device) -> int:
     (tree.rs:79-103, aggregator/Cargo.toml).  Here a chunk prove is one
     device pipeline, so concurrency = one worker per card (per-device
     prover contexts, see plonk.device_prover.get_context); with one card
-    proving is serialized and we stay sequential.  On the CPU, 1: the
-    chunk proves would share the host's cores.  QZK_AGG_WORKERS forces a
-    count."""
+    proving is serialized and the levels are walked on the caller's
+    thread (_walk).  On the CPU, 1: the chunk proves would share the
+    host's cores.  QZK_AGG_WORKERS forces a count.  A level never has
+    more workers than the level below it."""
     flag = os.environ.get("QZK_AGG_WORKERS")
     if flag:
         return max(1, min(int(flag), n_chunks))
@@ -246,6 +267,10 @@ def _chunk_devices(n_chunks: int, device: torch.device) -> list:
     return [torch.device("cuda", i % n) for i in range(n_chunks)]
 
 
+def _n_chunks(n_proofs: int, config: TreeAggregationConfig) -> int:
+    return -(-n_proofs // config.tree_branching_factor)
+
+
 def aggregate_level(
     proofs: list, common, verifier_only, config: TreeAggregationConfig,
     device=None, timer=None, level: int = 1,
@@ -253,13 +278,16 @@ def aggregate_level(
     """One tree level (level 1 proves the leaves): chunked recursion
     proofs (tree.rs:79-103).  Builds one circuit per chunk size
     occurring at this level; chunks prove concurrently across cards
-    when more than one is attached, each on the card it is given.  The
-    level is the span "aggregation.level", each chunk prove the span
-    "aggregation.chunk" (utils/spans.py), when `timer` is given or a
-    request is open.  On the sequential path `timer` marks the phases of
-    each chunk prove in turn; chunks that fan out record their spans in
-    the worker threads and mark nothing."""
+    when more than one is attached, each on the card it is given, else
+    one after another on this thread (_walk).  The level is the span
+    "aggregation.level", each chunk prove the span "aggregation.chunk"
+    (utils/spans.py), when `timer` is given or a request is open.  On
+    the one-worker path `timer` marks the phases of each chunk prove in
+    turn; chunks that fan out record their spans in the worker threads
+    and mark nothing."""
     dev = resolve_device(device)
+    if _agg_workers(_n_chunks(len(proofs), config), dev) <= 1:
+        return _walk(proofs, common, verifier_only, config, dev, timer, level, levels=1)
     b = config.tree_branching_factor
     chunks = [proofs[i : i + b] for i in range(0, len(proofs), b)]
     with spans.span("aggregation.level", timer=timer, level=level, chunks=len(chunks)):
@@ -268,14 +296,8 @@ def aggregate_level(
             size = len(chunk)
             if size not in circuits:
                 circuits[size] = build_chunk_circuit(common, size)
-        workers = _agg_workers(len(chunks), dev)
-        if workers <= 1:
-            out = []
-            for i, c in enumerate(chunks):
-                with spans.span("aggregation.chunk", level=level, chunk=i, card=dev):
-                    out.append(_prove_chunk(circuits[len(c)], c, verifier_only, dev, timer))
-            return out
         devices = _chunk_devices(len(chunks), dev)
+        workers = _agg_workers(len(chunks), dev)
 
         def prove_on(i, chunk):
             with spans.span("aggregation.chunk", level=level, chunk=i, card=devices[i]):
@@ -289,26 +311,109 @@ def aggregate_level(
             return [f.result() for f in futures]
 
 
+def _prefetched_front(level: int, chunk_index: int, circuit, chunk, verifier_only) -> Front:
+    with spans.span("aggregation.prefetch", level=level, chunk=chunk_index):
+        return _chunk_front(circuit, chunk, verifier_only)
+
+
+def _walk(
+    proofs: list, common, verifier_only, config: TreeAggregationConfig, dev, timer,
+    level: int, levels: int | None = None,
+) -> list:
+    """Prove the tree from `level` on (down to one proof, or `levels`
+    levels) on this thread, chunk by chunk in tree order, with one
+    chunk's host front (_chunk_front) in flight on one helper thread: as
+    soon as a chunk's front is in hand, the next chunk's is begun if
+    every child of it is proved, and the chunk's device part runs here.
+    Everything that touches the card stays on this thread, in the order
+    of a prove alone, so the proofs are the same.  The helper's work is
+    the span "aggregation.prefetch" (`level`, `chunk`), in the request
+    of this thread; this thread's wait for it the span
+    "aggregation.prefetch_wait", whose attribute `ready` is 1 when the
+    front was done before it was asked for.  Returns the last level's
+    proofs."""
+    b = config.tree_branching_factor
+    counts = [len(proofs)]  # proofs a level, the walk's input first
+    while (len(counts) == 1 or counts[-1] > 1) and (levels is None or len(counts) <= levels):
+        counts.append(_n_chunks(counts[-1], config))
+    done: list = [proofs] + [[] for _ in counts[1:]]
+    circuits: dict = {}
+    order = [(j, i) for j in range(1, len(counts)) for i in range(counts[j])]
+
+    def inputs(j, i):
+        """(circuit, child proofs, their verifier data) of chunk i of
+        the walk's level j; the level below is proved that far."""
+        lo, hi = i * b, min((i + 1) * b, counts[j - 1])
+        if j == 1:
+            chunk, c, vo = proofs[lo:hi], common, verifier_only
+        else:
+            below = done[j - 1]
+            chunk = [p.proof for p in below[lo:hi]]
+            c, vo = below[0].circuit_data.common, below[0].circuit_data.verifier_only
+        if (j, len(chunk)) not in circuits:
+            circuits[j, len(chunk)] = build_chunk_circuit(c, len(chunk))
+        return circuits[j, len(chunk)], chunk, vo
+
+    def children_proved(j, i):
+        return j == 1 or len(done[j - 1]) >= min((i + 1) * b, counts[j - 1])
+
+    # the request the fronts' spans join: the caller's, else the one the
+    # first level's span opens
+    base = contextvars.copy_context() if spans.in_request() else None
+    with concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="qzk-prefetch"
+    ) as helper:
+        pending = None  # (circuit, chunk, verifier data, future) of the next chunk
+
+        def submit(j, i):
+            circuit, chunk, vo = inputs(j, i)
+            return circuit, chunk, vo, helper.submit(
+                base.copy().run, _prefetched_front, level + j - 1, i, circuit, chunk, vo)
+
+        k = 0
+        for j in range(1, len(counts)):
+            with spans.span("aggregation.level", timer=timer, level=level + j - 1,
+                            chunks=counts[j]):
+                if base is None:
+                    base = contextvars.copy_context()
+                for i in range(counts[j]):
+                    with spans.span("aggregation.chunk", level=level + j - 1, chunk=i,
+                                    card=dev):
+                        prefetched = pending is not None
+                        circuit, chunk, vo, future = pending or submit(j, i)
+                        with spans.span("aggregation.prefetch_wait",
+                                        attrs={"ready": int(prefetched and future.done())}):
+                            front = future.result()
+                        k += 1
+                        pending = (submit(*order[k]) if k < len(order)
+                                   and children_proved(*order[k]) else None)
+                        done[j].append(_prove_chunk(circuit, chunk, vo, dev, timer,
+                                                    front=front))
+    return done[-1]
+
+
 def aggregate_to_tree(
     leaf_proofs: list, common, verifier_only, config: TreeAggregationConfig,
     device=None, timer=None,
 ) -> AggregatedProof:
     """tree.rs:55-77: aggregate level by level until one proof remains;
-    the span "aggregate" when `timer` is given or a request is open."""
+    the span "aggregate" when `timer` is given or a request is open.
+    Levels with more than one worker fan out (aggregate_level); from the
+    first level with one, the rest of the tree is one walk (_walk)."""
     dev = resolve_device(device)
     with spans.span("aggregate", timer=timer):
-        proofs = aggregate_level(leaf_proofs, common, verifier_only, config, dev, timer)
-        level = 1
-        while len(proofs) > 1:
-            level += 1
-            level_common = proofs[0].circuit_data.common
-            level_vo = proofs[0].circuit_data.verifier_only
-            to_aggregate = [p.proof for p in proofs]
-            proofs = aggregate_level(
-                to_aggregate, level_common, level_vo, config, dev, timer, level
-            )
-    assert len(proofs) == 1
-    return proofs[0]
+        proofs, level = leaf_proofs, 1
+        while True:
+            if _agg_workers(_n_chunks(len(proofs), config), dev) <= 1:
+                out = _walk(proofs, common, verifier_only, config, dev, timer, level)
+                break
+            out = aggregate_level(proofs, common, verifier_only, config, dev, timer, level)
+            if len(out) <= 1:
+                break
+            common, verifier_only = out[0].circuit_data.common, out[0].circuit_data.verifier_only
+            proofs, level = [p.proof for p in out], level + 1
+    assert len(out) == 1
+    return out[0]
 
 
 def pad_with_dummy_proofs(

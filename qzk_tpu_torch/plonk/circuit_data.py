@@ -167,8 +167,8 @@ class CircuitData:
             common=self.common, verifier_only=self.verifier_only
         )
 
-    def prove(self, pw, device=None, timer=None):
-        return self.prover_data().prove(pw, device=device, timer=timer)
+    def prove(self, pw, device=None, timer=None, front=None):
+        return self.prover_data().prove(pw, device=device, timer=timer, front=front)
 
     def verify(self, proof) -> None:
         return self.verifier_data().verify(proof)
@@ -179,11 +179,12 @@ class ProverCircuitData:
     common: CommonCircuitData
     prover_only: ProverOnlyCircuitData
 
-    def prove(self, pw, device=None, timer=None):
-        """Prove on `device`: CUDA unless the caller passes "cpu"."""
+    def prove(self, pw, device=None, timer=None, front=None):
+        """Prove on `device`: CUDA unless the caller passes "cpu"; from
+        `front` (plonk/prover.py::prove_front) when given."""
         from .prover import prove as _prove
 
-        return _prove(self.common, self.prover_only, pw, device, timer)
+        return _prove(self.common, self.prover_only, pw, device, timer, front)
 
 
 @dataclass

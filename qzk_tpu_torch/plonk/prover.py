@@ -8,10 +8,13 @@ SURVEY.md §3.1 steps 1-5):
      divide by Z_H, split, commit                          }  kernels)
   5. openings at zeta / g*zeta + batched FRI opening proof }
 
-Steps 2-5 run in plonk/device_prover.py as one fused pipeline on the
-device the caller names: CUDA by default, one CUDA graph replay a warm
-prove; the CPU when asked (the same function runs eagerly, through the
-plain torch versions of the kernels).  With a mesh active
+Step 1, the public inputs' hash and the blinding stream's seed are the
+prove's host front (prove_front), which makes no CUDA call, so a caller
+may make it beforehand, on another thread (the aggregator's one-card
+walk does).  Steps 2-5 run in plonk/device_prover.py as one fused
+pipeline on the device the caller names: CUDA by default, one CUDA
+graph replay a warm prove; the CPU when asked (the same function runs
+eagerly, through the plain torch versions of the kernels).  With a mesh active
 (qzk_tpu_torch.parallel.set_mesh, or QZK_SHARD=N) of more than one
 shard, they run sharded over it
 (parallel/prover_sharded.py) when the circuit meets the mesh's
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -78,21 +82,22 @@ class PhaseTimer:
         return out
 
 
-def blinding_stream(values: np.ndarray, device):
-    """The zk blinding stream of a witness: a function shape -> the
-    next draw, an int64 tensor of canonical field elements on `device`.
+def blinding_seed(values: np.ndarray) -> int:
+    """The seed of a witness's zk blinding stream: the first word of
+    hash_no_pad over the first 1024 witness values, masked to 63 bits."""
+    digest = pos.hash_no_pad(values[: min(len(values), 1024)])
+    return int.from_bytes(digest.astype("<u8").tobytes()[:8], "little") & 0x7FFFFFFFFFFFFFFF
 
-    The seed is the first word of hash_no_pad over the first 1024
-    witness values, masked to 63 bits; each draw splits the key once and
-    takes jax.random.bits(sub, shape, "uint64") >> 1, bit for bit
+
+def blinding_stream(seed: int, device):
+    """The zk blinding stream of a witness whose blinding_seed is `seed`:
+    a function shape -> the next draw, an int64 tensor of canonical
+    field elements on `device`.
+
+    Each draw splits the key once and takes
+    jax.random.bits(sub, shape, "uint64") >> 1, bit for bit
     (ops/threefry.py).  The draw order is part of the stream."""
-    seed = int.from_bytes(
-        pos.hash_no_pad(values[: min(len(values), 1024)])
-        .astype("<u8")
-        .tobytes()[:8],
-        "little",
-    )
-    blind_key = threefry.prng_key(seed & 0x7FFFFFFFFFFFFFFF)
+    blind_key = threefry.prng_key(seed)
 
     def _blind_bits(shape):
         nonlocal blind_key
@@ -103,26 +108,22 @@ def blinding_stream(values: np.ndarray, device):
     return _blind_bits
 
 
-def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None
-          ) -> ProofWithPublicInputs:
-    """Prove the circuit for the partial witness `pw` on `device`
-    (CUDA unless the caller passes "cpu"), or over the active mesh.
-    With a `timer`, or inside an open request, the prove is the span
-    "prove" (utils/spans.py) and its phases are spans that end where
-    `timer` is marked."""
-    from .. import parallel as _parallel
+@dataclass(frozen=True)
+class Front:
+    """The host front of a prove, which makes no CUDA call: the witness
+    values (by union-find root), the public inputs, their hash, and the
+    blinding stream's seed (None without zero knowledge)."""
 
-    mesh = _parallel.active_mesh()
-    dev = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
-    with spans.span("prove", timer=timer, card=dev) as phases:
-        return _prove(common, prover_only, pw, dev, mesh, phases)
+    values: np.ndarray
+    public_inputs: np.ndarray
+    pi_hash: np.ndarray
+    blind_seed: int | None
 
 
-def _prove(common, prover_only, pw, dev, mesh, phases) -> ProofWithPublicInputs:
-    """prove() on `dev` (the mesh's first device under a mesh); `phases`
-    marks the prove's phases (None: nothing is recorded)."""
-    cfg = common.config
-    N = common.degree
+def prove_front(common, prover_only, pw, phases=None) -> Front:
+    """The front of a prove of the partial witness `pw`: the generators,
+    then (after `phases` marks "witness", when given) the public inputs,
+    their hash and the blinding seed."""
     values, _known = run_generators(prover_only.plan, pw)
     if phases is not None:
         phases.mark("witness")
@@ -132,8 +133,41 @@ def _prove(common, prover_only, pw, dev, mesh, phases) -> ProofWithPublicInputs:
         ]
     ] if prover_only.public_inputs else np.zeros(0, dtype=np.uint64)
     pi_hash = pos.hash_no_pad(public_inputs)
+    seed = blinding_seed(values) if common.config.zero_knowledge else None
+    return Front(values, public_inputs, pi_hash, seed)
 
-    _blind_bits = blinding_stream(values, dev) if cfg.zero_knowledge else None
+
+def prove(common, prover_only, pw, device=None, timer: PhaseTimer | None = None,
+          front: Front | None = None) -> ProofWithPublicInputs:
+    """Prove the circuit for the partial witness `pw` on `device`
+    (CUDA unless the caller passes "cpu"), or over the active mesh.
+    With a `timer`, or inside an open request, the prove is the span
+    "prove" (utils/spans.py) and its phases are spans that end where
+    `timer` is marked.  `front`: the prove's front (prove_front), when
+    the caller made it beforehand; `pw` is then not read and the phase
+    "witness" ends as the prove starts."""
+    from .. import parallel as _parallel
+
+    mesh = _parallel.active_mesh()
+    dev = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
+    with spans.span("prove", timer=timer, card=dev) as phases:
+        if front is None:
+            front = prove_front(common, prover_only, pw, phases)
+        elif phases is not None:
+            phases.mark("witness")
+        return _prove(common, prover_only, front, dev, mesh, phases)
+
+
+def _prove(common, prover_only, front: Front, dev, mesh, phases) -> ProofWithPublicInputs:
+    """The device part of prove() on `dev` (the mesh's first device
+    under a mesh), from the prove's front: the blinding draws, then the
+    pipeline; `phases` marks the prove's phases (None: nothing is
+    recorded)."""
+    cfg = common.config
+    N = common.degree
+    values, public_inputs, pi_hash = front.values, front.public_inputs, front.pi_hash
+
+    _blind_bits = blinding_stream(front.blind_seed, dev) if cfg.zero_knowledge else None
     n_used = len(prover_only.rows)
     blind_block = None  # blinds unconstrained padding rows
     if cfg.zero_knowledge and n_used < N:

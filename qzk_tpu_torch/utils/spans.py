@@ -188,6 +188,11 @@ def span(name: str, *, timer=None, device=None, level=None, chunk=None, chunks=N
                  {**_attrs(level, chunk, chunks, card), **(attrs or {})}, device)
 
 
+def in_request() -> bool:
+    """Whether this thread's context has a request open."""
+    return _STATE.get() is not None
+
+
 class _Locked:
     __slots__ = ("_lock", "_wait", "_held", "_open")
 

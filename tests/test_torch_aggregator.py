@@ -413,7 +413,8 @@ def test_threaded_level_returns_chunks_in_order(monkeypatch):
     lock = threading.Lock()
     release = threading.Barrier(2, timeout=30)
 
-    def stub(circuit, chunk, verifier_only, device=None, timer=None):
+    def stub(circuit, chunk, verifier_only, device=None, timer=None, front=None):
+        assert front is None  # a chunk that fans out makes its own front
         with lock:
             seen.append((threading.current_thread().name, tuple(chunk), device))
         if chunk[0] < 4:
@@ -441,11 +442,14 @@ def test_tree_runs_level_by_level(monkeypatch):
         def __init__(self, level):
             self.common, self.verifier_only = f"common{level}", f"vo{level}"
 
-    def stub(circuit, chunk, verifier_only, device=None, timer=None):
+    def stub(circuit, chunk, verifier_only, device=None, timer=None, front=None):
         level = int(circuit[0][-1]) + 1
+        assert front == ("front", circuit, tuple(chunk), verifier_only)
         return tagg.AggregatedProof(proof=("p", level, tuple(chunk)), circuit_data=_Data(level))
 
     monkeypatch.setattr(tagg, "_prove_chunk", stub)
+    monkeypatch.setattr(tagg, "_chunk_front",
+                        lambda circuit, chunk, vo: ("front", circuit, tuple(chunk), vo))
     root = aggregate_to_tree(
         list(range(8)), "common0", "vo0", TreeAggregationConfig.new(2, 3), device="cpu")
     assert root.circuit_data.common == "common3"
@@ -533,11 +537,16 @@ def _stub_aggregation(monkeypatch):
         return tagg._ChunkCircuit(data=_StubData(common.level + 1),
                                   verifier_data_target=None, proof_targets=[None] * size)
 
-    def prove(circuit, chunk, verifier_only, device=None, timer=None):
+    def front(circuit, chunk, verifier_only):
+        return np.concatenate([np.asarray(p.public_inputs, dtype=np.uint64) for p in chunk])
+
+    def prove(circuit, chunk, verifier_only, device=None, timer=None, front=None):
         pis = np.concatenate([np.asarray(p.public_inputs, dtype=np.uint64) for p in chunk])
+        assert front is None or np.array_equal(front, pis)
         return tagg.AggregatedProof(proof=_StubProof(pis), circuit_data=circuit.data)
 
     monkeypatch.setattr(tagg, "build_chunk_circuit", build)
+    monkeypatch.setattr(tagg, "_chunk_front", front)
     monkeypatch.setattr(tagg, "_prove_chunk", prove)
     return built
 

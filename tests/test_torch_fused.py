@@ -32,7 +32,7 @@ from qzk_tpu_torch.ops import ntt_cuda as nc
 from qzk_tpu_torch.ops import poseidon_cuda as pc
 from qzk_tpu_torch.ops.transcript import Challenger
 from qzk_tpu_torch.plonk import device_prover as dp
-from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_stream
+from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_seed, blinding_stream
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -274,7 +274,7 @@ def test_full_pipeline_body_makes_no_transfer(sides, monkeypatch):
     values, _ = twitness.run_generators(data.prover_only.plan, pw)
     wire_matrix = ctx.assemble_wires(values)
     pi = gt.from_u64(np.arange(4, dtype=np.uint64))
-    draw = blinding_stream(values, "cpu")
+    draw = blinding_stream(blinding_seed(values), "cpu")
     salts = tuple(draw((data.common.lde_size, 4)) if zk else None for _ in range(3))
     fn = ctx.full_pipeline(zk)
     want = fn(wire_matrix, pi, salts)[0]["packed"]

@@ -28,7 +28,7 @@ from qzk_tpu_torch.convert import from_jax_circuit_data
 from qzk_tpu_torch.ops import goldilocks as gl
 from qzk_tpu_torch.plonk import device_prover as dp
 from qzk_tpu_torch.plonk.fri import VerificationError
-from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_stream
+from qzk_tpu_torch.plonk.prover import PhaseTimer, blinding_seed, blinding_stream
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -159,7 +159,7 @@ def test_zero_knowledge_salts_reach_the_query_openings(zk_sides):
     _, _, tdata, tpw, tproof, _ = zk_sides
     common = tdata.common
     values, _ = twitness.run_generators(tdata.prover_only.plan, tpw)
-    draw = blinding_stream(values, "cpu")
+    draw = blinding_stream(blinding_seed(values), "cpu")
     salts = [draw((common.lde_size, 4)).numpy().view(np.uint64) for _ in range(3)]
     widths = [common.num_preprocessed_polys, common.config.num_wires + 4,
               common.num_zs_partial_products_polys + 4, common.num_quotient_polys + 4]

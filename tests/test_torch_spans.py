@@ -206,7 +206,7 @@ def _stub_chunk(seen):
     and proves in a span "prove" as the real one does."""
     lock = threading.Lock()
 
-    def stub(circuit, chunk, verifier_only, device=None, timer=None):
+    def stub(circuit, chunk, verifier_only, device=None, timer=None, front=None):
         with spans.span("prove", timer=timer, card=device) as phases:
             if phases is not None:
                 phases.mark("witness")
@@ -259,6 +259,7 @@ def test_sequential_levels_forward_marks(monkeypatch):
         return out
 
     monkeypatch.setattr(tagg, "_prove_chunk", chunk_proof)
+    monkeypatch.setattr(tagg, "_chunk_front", lambda circuit, chunk, vo: tuple(chunk))
     timer = Recorder()
     aggregate_to_tree(list(range(4)), "common", "vo", TreeAggregationConfig.new(2, 2),
                       device="cpu", timer=timer)

@@ -26,7 +26,7 @@ from qzk_tpu.ops import poseidon as jpos
 from qzk_tpu_torch.ops import goldilocks as gl
 from qzk_tpu_torch.ops import threefry
 from qzk_tpu_torch.ops import threefry_cuda
-from qzk_tpu_torch.plonk.prover import blinding_stream
+from qzk_tpu_torch.plonk.prover import blinding_seed, blinding_stream
 
 RANDOM_SEEDS = [
     int(s) for s in np.random.default_rng(20261017).integers(0, 1 << 63, size=3, dtype=np.uint64)
@@ -179,7 +179,7 @@ def test_blinding_stream_matches_the_jax_prover_sequence(blind_rows):
         jpos.hash_no_pad(values[:1024]).astype("<u8").tobytes()[:8], "little")
     jkey = jax.random.PRNGKey(seed & 0x7FFFFFFFFFFFFFFF)
     shapes = ([(blind_rows, wires)] if blind_rows else []) + [(lde, 4)] * 3
-    draw = blinding_stream(values, "cpu")
+    draw = blinding_stream(blinding_seed(values), "cpu")
     for shape in shapes:
         jkey, sub = jax.random.split(jkey)
         got = draw(shape).numpy().view(np.uint64)
