@@ -205,15 +205,17 @@ def _build_chunk_circuit_uncached(common, branching: int) -> _ChunkCircuit:
 
 def _fill(circuit: _ChunkCircuit, chunk: list, verifier_only) -> PartialWitness:
     """The chunk circuit's partial witness from the child proofs (the
-    span "aggregation.fill")."""
+    span "aggregation.fill": `children`, the proofs filled, and `values`,
+    the targets set)."""
     pw = PartialWitness()
-    with spans.span("aggregation.fill"):
+    with spans.span("aggregation.fill", attrs={"children": len(chunk)}):
         rec.set_verifier_data_target(
             pw, circuit.verifier_data_target, verifier_only
         )
         assert len(chunk) == len(circuit.proof_targets)
         for pt, proof in zip(circuit.proof_targets, chunk):
             rec.set_proof_with_pis_target(pw, pt, proof)
+        spans.set_attrs(values=pw.num_values)
     return pw
 
 
@@ -234,7 +236,10 @@ def _prove_chunk(
     with `timer` (a plonk.prover.PhaseTimer) marking the prove's phases
     when given.  From `front` (_chunk_front) when the caller made it
     beforehand; else the witness is filled here and the generators run
-    inside the prove."""
+    inside the prove.  Gives the span "aggregation.chunk" it is called in
+    the attributes `children` (the proofs it verifies) and `degree_bits`
+    (its circuit's rows, log 2)."""
+    spans.set_attrs(children=len(chunk), degree_bits=circuit.data.common.degree_bits)
     pw = None if front is not None else _fill(circuit, chunk, verifier_only)
     proof = circuit.data.prove(pw, device=device, timer=timer, front=front)
     return AggregatedProof(proof=proof, circuit_data=circuit.data)

@@ -773,10 +773,14 @@ def _lru_touch(ctxs, key, common) -> None:
     _CTX_LRU.append((id(ctxs), key, ctxs, common))
 
 
-def _evict_down_to(n_keep: int) -> None:
+def _evict_down_to(n_keep: int) -> int:
+    """Drop the least recent contexts down to `n_keep`; returns how many."""
+    n = 0
     while len(_CTX_LRU) > n_keep:
         _, key, ctxs, _ = _CTX_LRU.pop(0)
         ctxs.pop(key, None)  # drop the refs; torch frees the memory and the graphs
+        n += 1
+    return n
 
 
 def context_device(device) -> torch.device:
@@ -788,6 +792,34 @@ def context_device(device) -> torch.device:
     return dev
 
 
+def _build_context(common, prover_only, dev: torch.device) -> DeviceProverContext:
+    """A new context on `dev`, after evicting down to the limit (to none,
+    and built again, if the build runs out of device memory); sets the
+    open span's `evicted` and, on a card, `bytes`."""
+    measure = dev.type == "cuda" and spans.in_request()
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated(dev) if measure else 0
+
+    with _CTX_LOCK:
+        evicted = _evict_down_to(_ctx_limit() - 1)
+    before = allocated()
+    ctx = None
+    try:
+        ctx = DeviceProverContext(common, prover_only, dev)
+    except torch.cuda.OutOfMemoryError:
+        pass  # retried below, once the handler has let go of the failed build
+    if ctx is None:
+        with _CTX_LOCK:
+            evicted += _evict_down_to(0)
+        before = allocated()
+        ctx = DeviceProverContext(common, prover_only, dev)
+    spans.set_attrs(evicted=evicted)
+    if measure:
+        spans.set_attrs(bytes=allocated() - before)
+    return ctx
+
+
 def get_context(common, prover_only, device) -> DeviceProverContext:
     """The circuit's context on `device`, built at first use.
 
@@ -796,7 +828,9 @@ def get_context(common, prover_only, device) -> DeviceProverContext:
     arrays on their own card.  A process-wide LRU bounds the resident
     contexts (see _CTX_LRU above); when building one runs out of device
     memory, every other context is evicted and the build retried once on
-    the same device."""
+    the same device.  A build is the span "device.context": `degree_bits`,
+    `evicted` (the contexts dropped to make room) and, on a card, `bytes`
+    (the device memory the build added there)."""
     dev = context_device(device)
     key = str(dev)
     ctxs = getattr(prover_only, "_torch_ctxs", None)
@@ -804,17 +838,8 @@ def get_context(common, prover_only, device) -> DeviceProverContext:
         ctxs = prover_only._torch_ctxs = {}
     ctx = ctxs.get(key)
     if ctx is None:
-        with _CTX_LOCK:
-            _evict_down_to(_ctx_limit() - 1)
-        try:
-            ctx = DeviceProverContext(common, prover_only, dev)
-        except torch.cuda.OutOfMemoryError:
-            pass  # retried below, once the handler has let go of the failed build
-        if ctx is None:
-            with _CTX_LOCK:
-                _evict_down_to(0)
-            ctx = DeviceProverContext(common, prover_only, dev)
-        ctxs[key] = ctx
+        with spans.span("device.context", attrs={"degree_bits": common.degree_bits}):
+            ctx = ctxs[key] = _build_context(common, prover_only, dev)
     with _CTX_LOCK:
         _lru_touch(ctxs, key, common)
     return ctx

@@ -6,8 +6,11 @@ protocol: mark(name) at the end of each phase): plonk.prover.prove and
 aggregator.aggregate_to_tree / aggregate_level.  A prove inside an open
 aggregation joins its request.  Every span of a request carries the
 request's id, its parent span and a few attributes (`level`, `chunk`,
-`chunks` and `card` on aggregation spans, `card` on a prove, `values`
-and `set_calls` on the generators); a span opened with `device=` also
+`chunks` and `card` on aggregation spans, `children` and `degree_bits`
+on a chunk, `children` and `values` on a fill, `card` on a prove,
+`values` and `set_calls` on the generators, `degree_bits`, `bytes` and
+`evicted` on a context build; set_attrs adds those known only at a
+span's end); a span opened with `device=` also
 times its work on that card with a pair of CUDA events, read as
 `device_ms` when first asked for, after the prove's own download has
 waited for the card.
@@ -191,6 +194,14 @@ def span(name: str, *, timer=None, device=None, level=None, chunk=None, chunks=N
 def in_request() -> bool:
     """Whether this thread's context has a request open."""
     return _STATE.get() is not None
+
+
+def set_attrs(**attrs) -> None:
+    """Add `attrs` to this thread's innermost open span: attributes known
+    only once its work is done.  Nothing with no request open."""
+    state = _STATE.get()
+    if state is not None:
+        state[1].attrs.update(attrs)
 
 
 class _Locked:

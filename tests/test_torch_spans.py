@@ -300,6 +300,20 @@ def test_requests_of_threads_stay_apart():
     assert all(r[1].parent is r[0] and r[1].request == r[0].request for r in recorded)
 
 
+def test_set_attrs_adds_to_the_innermost_open_span():
+    """Attributes known at a span's end join the innermost open span's,
+    and its parent's stay; with no request open nothing is kept."""
+    spans.set_attrs(values=1)  # no request: a no-op
+    timer = Recorder()
+    with spans.span("aggregation.chunk", timer=timer, level=1, chunk=0):
+        with spans.span("aggregation.fill", attrs={"children": 7}):
+            spans.set_attrs(values=12)
+        spans.set_attrs(children=7, degree_bits=17)
+    chunk, fill = spans.spans_of(timer)
+    assert fill.attrs == {"children": 7, "values": 12}
+    assert chunk.attrs == {"level": 1, "chunk": 0, "children": 7, "degree_bits": 17}
+
+
 def test_spans_live_as_long_as_their_timer():
     timer = Recorder()
     with spans.span("prove", timer=timer):
