@@ -79,6 +79,7 @@ def _build_and_load():
         i64p, i64p,  # bits
         i64p, i64p, i64p, i64p,  # poseidon
         u64p, u64p, ctypes.c_int, ctypes.c_int,  # mds, rc, rounds
+        ctypes.c_int,  # max_threads
         i64p,  # err_info
     ]
     lib.run_witness_plan.restype = ctypes.c_long
@@ -319,11 +320,15 @@ def _rc():
     return _rc_cache
 
 
-def run_witness_plan(values, known, native_plan):
+def run_witness_plan(values, known, native_plan, max_threads: int = 0):
     """Execute a compiled witness plan natively (see
-    plonk/witness.py:_compile_native_plan for the layout).  Returns the
-    error tuple (code, err_info) with code 0 on success, or None when
-    the native library is unavailable."""
+    plonk/witness.py::_NativePlan for the layout).  Returns the error
+    tuple (code, err_info) with code 0 on success, or None when the
+    native library is unavailable.  err_info[4:7] hold the threads the
+    run used, the items of the batches it split across them and all its
+    items.  The batches marked for it run on the process's witness
+    thread pool, capped at `max_threads` threads (0: the pool's size,
+    1: the calling thread alone)."""
     lib = get_lib()
     if lib is None:
         return None
@@ -335,7 +340,7 @@ def run_witness_plan(values, known, native_plan):
     pi64 = ctypes.POINTER(ctypes.c_long)
     p8 = ctypes.POINTER(ctypes.c_uint8)
     np_ = native_plan
-    err = np.zeros(4, dtype=np.int64)
+    err = np.zeros(8, dtype=np.int64)
     code = lib.run_witness_plan(
         values.ctypes.data_as(p64),
         known.ctypes.data_as(p8),
@@ -361,6 +366,7 @@ def run_witness_plan(values, known, native_plan):
         _ptr(_rc()),
         pos.HALF_FULL,
         pos.N_PARTIAL_ROUNDS,
+        max_threads,
         err.ctypes.data_as(pi64),
     )
     return int(code), err

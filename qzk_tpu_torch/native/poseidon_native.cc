@@ -8,10 +8,17 @@
 // Built as a plain C-ABI shared object, loaded via ctypes
 // (native/__init__.py); falls back to numpy if unavailable.
 
+#include <algorithm>
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
+
+#include <sched.h>
+#include <unistd.h>
 
 using u64 = std::uint64_t;
 using u128 = unsigned __int128;
@@ -713,8 +720,11 @@ void poseidon_trace(const u64 *inputs, const u64 *swap, long B,
 //   2 = set twice with different vals err_info[0] = root id
 //   3 = range check failed            err_info[0] = root id,
 //                                     err_info[1] = value, [2] = nbits
+// and, on every return, err_info[4] = the threads the run used,
+// err_info[5] = the items of the batches it split, err_info[6] = all
+// items of the batches it ran (err_info holds 8 slots).
 //
-// batch_table rows (int64 x 6): [kind, start, count, aux0, aux1, aux2]
+// batch_table rows (int64 x 6): [kind, start, count, aux0, aux1, split]
 //   kind 0 const:    ids = const_ids[start..+count], vals = const_vals
 //   kind 1 arith:    arith_* arrays [start..+count]
 //   kind 2 inv:      inv_x / inv_out [start..+count]
@@ -725,6 +735,17 @@ void poseidon_trace(const u64 *inputs, const u64 *swap, long B,
 //                    order: deltas | full0 r1..3 | partial | full1),
 //                    outs = pos_out[start*12..]; aux0 = items offset
 //                    (start indexes ITEMS here, not flat felts)
+//   split = 1 marks an arith or poseidon batch whose items may run on
+//   several threads: its output roots are pairwise distinct and none is
+//   one of its input roots (plonk/witness.py::_NativePlan), so no item
+//   reads what another writes and no two write one value.  Such a batch
+//   is cut into contiguous ranges (poseidon: of whole 8-item groups),
+//   one a thread of the pool below, which its threads claim, the
+//   caller's first; each range stops at its first failing item and the lowest
+//   failing item of the batch is reported, as the serial walk would.
+//   A run holds the pool from its first split batch to its last.
+//   max_threads caps the threads (0: the pool's size, 1: the caller's
+//   thread alone).
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -750,6 +771,352 @@ static inline int wwrite(WitnessCtx &w, long id, u64 v) {
   return 0;
 }
 
+// The plan's arrays and the Poseidon constants every range reads.
+struct PlanArgs {
+  const long *const_ids;
+  const u64 *const_vals;
+  const u64 *arith_c0, *arith_c1;
+  const long *arith_m0, *arith_m1, *arith_a, *arith_out;
+  const long *inv_x, *inv_out;
+  const long *bits_val, *bits_out;
+  const long *pos_in, *pos_swap, *pos_internal, *pos_out;
+  u64 m[12][12];
+  const u64 *rc;
+  int half_full, n_partial;
+  long n_internal, stored_w;
+};
+
+// A range's first failing item (its index in the batch) and its error.
+struct Fail {
+  long item, code, info[3];
+};
+
+static inline long fail_at(Fail *f, long item, long code, long id) {
+  f->item = item;
+  f->code = code;
+  f->info[0] = id;
+  return code;
+}
+
+// Items [lo, hi) of one batch, in order; 0, or the code of the first
+// failing item (recorded in *f).
+static long run_range(const PlanArgs &p, WitnessCtx &w, const long *row,
+                      long lo, long hi, Fail *f) {
+  long kind = row[0], start = row[1];
+  switch (kind) {
+  case 0: // const
+    for (long i = lo; i < hi; ++i) {
+      long id = p.const_ids[start + i];
+      if (int rc_ = wwrite(w, id, p.const_vals[start + i]))
+        return fail_at(f, i, rc_, id);
+    }
+    break;
+  case 1: // arith: out = c0 * m0 * m1 + c1 * a
+    for (long i = lo; i < hi; ++i) {
+      long k = start + i;
+      u64 m0, m1, a;
+      if (wread(w, p.arith_m0[k], &m0)) return fail_at(f, i, 1, p.arith_m0[k]);
+      if (wread(w, p.arith_m1[k], &m1)) return fail_at(f, i, 1, p.arith_m1[k]);
+      if (wread(w, p.arith_a[k], &a)) return fail_at(f, i, 1, p.arith_a[k]);
+      u64 v = gadd(gmul(p.arith_c0[k], gmul(m0, m1)), gmul(p.arith_c1[k], a));
+      if (int rc_ = wwrite(w, p.arith_out[k], v))
+        return fail_at(f, i, rc_, p.arith_out[k]);
+    }
+    break;
+  case 2: // inv_or_zero (Fermat; batches are small)
+    for (long i = lo; i < hi; ++i) {
+      long k = start + i;
+      u64 x;
+      if (wread(w, p.inv_x[k], &x)) return fail_at(f, i, 1, p.inv_x[k]);
+      u64 v = 0;
+      if (x != 0) { // x^(p-2)
+        u64 result = 1, acc = x;
+        u64 e = P - 2;
+        while (e) {
+          if (e & 1) result = gmul(result, acc);
+          acc = gmul(acc, acc);
+          e >>= 1;
+        }
+        v = result;
+      }
+      if (int rc_ = wwrite(w, p.inv_out[k], v))
+        return fail_at(f, i, rc_, p.inv_out[k]);
+    }
+    break;
+  case 3: { // bits: little-endian decomposition + range check
+    long nbits = row[3], bstart = row[4];
+    for (long i = lo; i < hi; ++i) {
+      long vid = p.bits_val[start + i];
+      u64 v;
+      if (wread(w, vid, &v)) return fail_at(f, i, 1, vid);
+      if (nbits < 64 && (v >> nbits) != 0) {
+        f->info[1] = (long)v;
+        f->info[2] = nbits;
+        return fail_at(f, i, 3, vid);
+      }
+      const long *bids = p.bits_out + bstart + i * nbits;
+      for (long b = 0; b < nbits; ++b)
+        if (int rc_ = wwrite(w, bids[b], (v >> b) & 1))
+          return fail_at(f, i, rc_, bids[b]);
+    }
+    break;
+  }
+  case 4: { // poseidon: full trace per item
+    const u64(&m)[12][12] = p.m;
+    const u64 *rc = p.rc;
+    const int half_full = p.half_full, n_partial = p.n_partial;
+    const long stored_w = p.stored_w;
+    long i0 = lo;
+#ifdef QZK_AVX512
+    if (have_avx512()) {
+      u64 in8[8 * 12], swp8[8], dl8[8 * 4], out8[8 * 12];
+      std::vector<u64> st8(8 * stored_w); // this thread's scratch
+      for (; i0 + 8 <= hi; i0 += 8) {
+        bool ok = true;
+        for (int l = 0; l < 8 && ok; ++l) {
+          long k = start + i0 + l;
+          for (int j = 0; j < 12; ++j)
+            if (wread(w, p.pos_in[k * 12 + j], &in8[l * 12 + j])) {
+              ok = false;
+              break;
+            }
+          if (ok && wread(w, p.pos_swap[k], &swp8[l])) ok = false;
+        }
+        if (!ok) break; // scalar tail re-reads and reports the error
+        trace8_core(in8, swp8, m, rc, half_full, n_partial, dl8, st8.data(),
+                    out8, stored_w);
+        for (int l = 0; l < 8; ++l) {
+          long i = i0 + l, k = start + i;
+          const long *ids = p.pos_internal + k * p.n_internal;
+          long sp = 0;
+          for (int j = 0; j < 4; ++j, ++sp)
+            if (int rc_ = wwrite(w, ids[sp], dl8[l * 4 + j]))
+              return fail_at(f, i, rc_, ids[sp]);
+          for (long j = 0; j < stored_w; ++j, ++sp)
+            if (int rc_ = wwrite(w, ids[sp], st8[l * stored_w + j]))
+              return fail_at(f, i, rc_, ids[sp]);
+          for (int j = 0; j < 12; ++j)
+            if (int rc_ = wwrite(w, p.pos_out[k * 12 + j], out8[l * 12 + j]))
+              return fail_at(f, i, rc_, p.pos_out[k * 12 + j]);
+        }
+      }
+    }
+#endif
+    for (long i = i0; i < hi; ++i) {
+      long k = start + i;
+      u64 in[12], swp;
+      for (int j = 0; j < 12; ++j)
+        if (wread(w, p.pos_in[k * 12 + j], &in[j]))
+          return fail_at(f, i, 1, p.pos_in[k * 12 + j]);
+      if (wread(w, p.pos_swap[k], &swp)) return fail_at(f, i, 1, p.pos_swap[k]);
+      const long *ids = p.pos_internal + k * p.n_internal;
+      u64 s[12], tmp[12], pre[12], dl[4];
+      long sp = 0;
+      for (int j = 0; j < 4; ++j) {
+        dl[j] = gmul(swp, gsub(in[j + 4], in[j]));
+        if (int rc_ = wwrite(w, ids[sp], dl[j])) return fail_at(f, i, rc_, ids[sp]);
+        ++sp;
+      }
+      for (int j = 0; j < 4; ++j) s[j] = gadd(in[j], dl[j]);
+      for (int j = 0; j < 4; ++j) s[j + 4] = gsub(in[j + 4], dl[j]);
+      for (int j = 8; j < 12; ++j) s[j] = in[j];
+      for (int j = 0; j < 12; ++j) tmp[j] = sbox7(gadd(s[j], rc[j]));
+      mds(m, tmp, s);
+      for (int r = 1; r < half_full; ++r) {
+        const u64 *rcr = rc + r * 12;
+        for (int j = 0; j < 12; ++j) {
+          pre[j] = gadd(s[j], rcr[j]);
+          if (int rc_ = wwrite(w, ids[sp], pre[j])) return fail_at(f, i, rc_, ids[sp]);
+          ++sp;
+          tmp[j] = sbox7(pre[j]);
+        }
+        mds(m, tmp, s);
+      }
+      for (int pr = 0; pr < n_partial; ++pr) {
+        const u64 *rcr = rc + (half_full + pr) * 12;
+        for (int j = 0; j < 12; ++j) pre[j] = gadd(s[j], rcr[j]);
+        if (int rc_ = wwrite(w, ids[sp], pre[0])) return fail_at(f, i, rc_, ids[sp]);
+        ++sp;
+        pre[0] = sbox7(pre[0]);
+        mds(m, pre, s);
+      }
+      for (int r = 0; r < half_full; ++r) {
+        const u64 *rcr = rc + (half_full + n_partial + r) * 12;
+        for (int j = 0; j < 12; ++j) {
+          pre[j] = gadd(s[j], rcr[j]);
+          if (int rc_ = wwrite(w, ids[sp], pre[j])) return fail_at(f, i, rc_, ids[sp]);
+          ++sp;
+          tmp[j] = sbox7(pre[j]);
+        }
+        mds(m, tmp, s);
+      }
+      for (int j = 0; j < 12; ++j)
+        if (int rc_ = wwrite(w, p.pos_out[k * 12 + j], s[j]))
+          return fail_at(f, i, rc_, p.pos_out[k * 12 + j]);
+    }
+    break;
+  }
+  }
+  return 0;
+}
+
+static inline void cpu_relax() {
+#if defined(__x86_64__) || defined(__i386__)
+  __builtin_ia32_pause();
+#endif
+}
+
+// The host threads the wide batches of a witness plan run on: created
+// at first use, never freed, at most MAX_THREADS with the caller's and
+// at most half of the cores this process may run on.  One run holds it
+// at a time (a try-lock: a run that finds it held runs alone).  A batch
+// is cut into one range a thread, and each thread, the caller's first,
+// claims the next range not yet taken: a worker that is asleep or
+// descheduled when the batch starts holds nothing up, its range going
+// to a thread that is running.  While a run holds the pool the workers
+// wait between batches by spinning, then yielding; once the run lets it
+// go they sleep on a condition variable until the next run takes it.
+class WitnessPool {
+public:
+  static constexpr int MAX_THREADS = 4;
+
+  // nullptr where the process may use fewer than 4 cores.
+  static WitnessPool *instance() {
+    static std::mutex mu;
+    static WitnessPool *pool = nullptr;
+    static pid_t owner = 0;
+    std::lock_guard<std::mutex> lk(mu);
+    if (owner != getpid()) { // first use, or a forked child: no workers here
+      owner = getpid();
+      pool = nullptr;
+      cpu_set_t set;
+      int cores = sched_getaffinity(0, sizeof set, &set) == 0 ? CPU_COUNT(&set) : 1;
+      int cap = MAX_THREADS, threads = std::min(cap, cores / 2);
+      if (threads >= 2) {
+        try {
+          pool = new WitnessPool(threads - 1);
+        } catch (...) {
+          pool = nullptr;
+        }
+      }
+    }
+    return pool;
+  }
+
+  int size() const { return n_workers_ + 1; }
+
+  bool try_acquire() {
+    bool free = false;
+    if (!held_.compare_exchange_strong(free, true, std::memory_order_acquire))
+      return false;
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      running_.store(true, std::memory_order_release);
+    }
+    cv_.notify_all();
+    return true;
+  }
+
+  void release() {
+    running_.store(false, std::memory_order_release);
+    held_.store(false, std::memory_order_release);
+  }
+
+  // fn(ctx, part) for part in [0, parts) on whichever threads claim
+  // them, this one included; returns once every part is done.
+  void run(int parts, void (*fn)(void *, int), void *ctx) {
+    fn_ = fn;
+    ctx_ = ctx;
+    finished_.store(0, std::memory_order_relaxed);
+    // the job word: (batch sequence << 32) | (parts << 16) | next part
+    std::uint64_t seq = (job_.load(std::memory_order_relaxed) >> 32) + 1;
+    job_.store(seq << 32 | std::uint64_t(parts) << 16, std::memory_order_release);
+    while (claim_and_run()) {
+    }
+    for (long spins = 0; finished_.load(std::memory_order_acquire) != parts;)
+      if (++spins < SPINS) cpu_relax();
+      else std::this_thread::yield();
+  }
+
+private:
+  static constexpr long SPINS = 2000;
+
+  explicit WitnessPool(int n_workers) : n_workers_(n_workers) {
+    for (int i = 0; i < n_workers; ++i) std::thread([this] { work(); }).detach();
+  }
+
+  // Claims the current batch's next part and runs it; false when none
+  // is left to claim.
+  bool claim_and_run() {
+    std::uint64_t w = job_.load(std::memory_order_acquire);
+    for (;;) {
+      unsigned next = w & 0xFFFF, parts = (w >> 16) & 0xFFFF;
+      if (next >= parts) return false;
+      if (job_.compare_exchange_weak(w, w + 1, std::memory_order_acq_rel)) {
+        fn_(ctx_, int(next)); // the batch lasts until its parts are done
+        finished_.fetch_add(1, std::memory_order_release);
+        return true;
+      }
+    }
+  }
+
+  void work() {
+    for (;;) {
+      if (claim_and_run()) continue;
+      std::uint64_t w = job_.load(std::memory_order_acquire);
+      for (long spins = 0; job_.load(std::memory_order_acquire) == w;) {
+        if (++spins < SPINS) {
+          cpu_relax();
+        } else if (running_.load(std::memory_order_acquire)) {
+          std::this_thread::yield();
+        } else {
+          std::unique_lock<std::mutex> lk(mu_);
+          cv_.wait(lk, [&] {
+            return running_.load(std::memory_order_acquire) ||
+                   job_.load(std::memory_order_acquire) != w;
+          });
+          spins = 0;
+        }
+      }
+    }
+  }
+
+  const int n_workers_;
+  std::atomic<bool> held_{false}, running_{false};
+  std::atomic<std::uint64_t> job_{0};
+  std::atomic<int> finished_{0};
+  std::mutex mu_;
+  std::condition_variable cv_;
+  // the current batch, published by job_
+  void (*fn_)(void *, int) = nullptr;
+  void *ctx_ = nullptr;
+};
+
+// One split batch: its ranges and what each found.
+struct SplitBatch {
+  const PlanArgs *p;
+  WitnessCtx *w;
+  const long *row;
+  int parts;
+  struct alignas(64) Part {
+    Fail fail; // code 0: the range ran through
+  } part[WitnessPool::MAX_THREADS];
+
+  static void run_part(void *ctx, int k) {
+    SplitBatch &b = *static_cast<SplitBatch *>(ctx);
+    long count = b.row[2], lo, hi;
+    if (b.row[0] == 4) { // whole 8-item groups, the tail to the last range
+      long groups = count / 8;
+      lo = 8 * (groups * k / b.parts);
+      hi = k + 1 == b.parts ? count : 8 * (groups * (k + 1) / b.parts);
+    } else {
+      lo = count * k / b.parts;
+      hi = count * (k + 1) / b.parts;
+    }
+    run_range(*b.p, *b.w, b.row, lo, hi, &b.part[k].fail);
+  }
+};
+
 } // namespace
 
 extern "C" {
@@ -765,195 +1132,71 @@ long run_witness_plan(
     const long *pos_in, const long *pos_swap, const long *pos_internal,
     const long *pos_out,
     const u64 *mds_m, const u64 *rc, int half_full, int n_partial,
-    long *err_info) {
+    int max_threads, long *err_info) {
   WitnessCtx w{values, known};
-  u64 m[12][12];
+  PlanArgs p{const_ids, const_vals, arith_c0, arith_c1, arith_m0, arith_m1,
+             arith_a, arith_out, inv_x, inv_out, bits_val, bits_out,
+             pos_in, pos_swap, pos_internal, pos_out, {}, rc,
+             half_full, n_partial, 0, 0};
   for (int r = 0; r < 12; ++r)
-    for (int c = 0; c < 12; ++c) m[r][c] = mds_m[r * 12 + c];
-  long n_internal = (half_full - 1) * 12 + n_partial + half_full * 12 + 4;
+    for (int c = 0; c < 12; ++c) p.m[r][c] = mds_m[r * 12 + c];
+  p.stored_w = (half_full - 1) * 12 + n_partial + half_full * 12;
+  p.n_internal = p.stored_w + 4;
 
+  WitnessPool *pool = nullptr; // held by this run
+  bool asked = false;
+  int threads = 1;
+  long split_items = 0, items = 0;
+  auto finish = [&](long code) {
+    if (pool) pool->release();
+    err_info[4] = threads;
+    err_info[5] = split_items;
+    err_info[6] = items;
+    return code;
+  };
+  auto splits = [](const long *row) { return row[5] == 1 && (row[0] == 1 || row[0] == 4); };
+  long last_split = -1; // the workers sleep again after it
+  for (long bi = 0; max_threads != 1 && bi < n_batches; ++bi)
+    if (splits(batch_table + bi * 6)) last_split = bi;
   for (long bi = 0; bi < n_batches; ++bi) {
     const long *row = batch_table + bi * 6;
-    long kind = row[0], start = row[1], count = row[2];
-    switch (kind) {
-    case 0: // const
-      for (long i = 0; i < count; ++i) {
-        long id = const_ids[start + i];
-        if (int rc_ = wwrite(w, id, const_vals[start + i])) {
-          err_info[0] = id;
-          return rc_;
-        }
-      }
-      break;
-    case 1: // arith: out = c0 * m0 * m1 + c1 * a
-      for (long i = 0; i < count; ++i) {
-        long k = start + i;
-        u64 m0, m1, a;
-        if (wread(w, arith_m0[k], &m0)) { err_info[0] = arith_m0[k]; return 1; }
-        if (wread(w, arith_m1[k], &m1)) { err_info[0] = arith_m1[k]; return 1; }
-        if (wread(w, arith_a[k], &a)) { err_info[0] = arith_a[k]; return 1; }
-        u64 v = gadd(gmul(arith_c0[k], gmul(m0, m1)), gmul(arith_c1[k], a));
-        if (int rc_ = wwrite(w, arith_out[k], v)) {
-          err_info[0] = arith_out[k];
-          return rc_;
-        }
-      }
-      break;
-    case 2: // inv_or_zero (Fermat; batches are small)
-      for (long i = 0; i < count; ++i) {
-        long k = start + i;
-        u64 x;
-        if (wread(w, inv_x[k], &x)) { err_info[0] = inv_x[k]; return 1; }
-        u64 v = 0;
-        if (x != 0) { // x^(p-2)
-          u64 result = 1, acc = x;
-          u64 e = P - 2;
-          while (e) {
-            if (e & 1) result = gmul(result, acc);
-            acc = gmul(acc, acc);
-            e >>= 1;
-          }
-          v = result;
-        }
-        if (int rc_ = wwrite(w, inv_out[k], v)) {
-          err_info[0] = inv_out[k];
-          return rc_;
-        }
-      }
-      break;
-    case 3: { // bits: little-endian decomposition + range check
-      long nbits = row[3], bstart = row[4];
-      for (long i = 0; i < count; ++i) {
-        long vid = bits_val[start + i];
-        u64 v;
-        if (wread(w, vid, &v)) { err_info[0] = vid; return 1; }
-        if (nbits < 64 && (v >> nbits) != 0) {
-          err_info[0] = vid;
-          err_info[1] = (long)v;
-          err_info[2] = nbits;
-          return 3;
-        }
-        const long *bids = bits_out + bstart + i * nbits;
-        for (long b = 0; b < nbits; ++b) {
-          if (int rc_ = wwrite(w, bids[b], (v >> b) & 1)) {
-            err_info[0] = bids[b];
-            return rc_;
-          }
-        }
-      }
-      break;
-    }
-    case 4: { // poseidon: full trace per item
-      long i0 = 0;
-#ifdef QZK_AVX512
-      if (have_avx512()) {
-        long stored_w = (half_full - 1) * 12 + n_partial + half_full * 12;
-        u64 in8[8 * 12], swp8[8], dl8[8 * 4], out8[8 * 12];
-        std::vector<u64> st8(8 * stored_w);
-        for (; i0 + 8 <= count; i0 += 8) {
-          bool ok = true;
-          for (int l = 0; l < 8 && ok; ++l) {
-            long k = start + i0 + l;
-            for (int j = 0; j < 12; ++j)
-              if (wread(w, pos_in[k * 12 + j], &in8[l * 12 + j])) {
-                ok = false;
-                break;
-              }
-            if (ok && wread(w, pos_swap[k], &swp8[l])) ok = false;
-          }
-          if (!ok) break; // scalar tail re-reads and reports the error
-          trace8_core(in8, swp8, m, rc, half_full, n_partial, dl8,
-                      st8.data(), out8, stored_w);
-          for (int l = 0; l < 8; ++l) {
-            long k = start + i0 + l;
-            const long *ids = pos_internal + k * n_internal;
-            long sp = 0;
-            for (int j = 0; j < 4; ++j, ++sp)
-              if (int rc_ = wwrite(w, ids[sp], dl8[l * 4 + j])) {
-                err_info[0] = ids[sp];
-                return rc_;
-              }
-            for (long j = 0; j < stored_w; ++j, ++sp)
-              if (int rc_ = wwrite(w, ids[sp], st8[l * stored_w + j])) {
-                err_info[0] = ids[sp];
-                return rc_;
-              }
-            for (int j = 0; j < 12; ++j)
-              if (int rc_ = wwrite(w, pos_out[k * 12 + j],
-                                   out8[l * 12 + j])) {
-                err_info[0] = pos_out[k * 12 + j];
-                return rc_;
-              }
-          }
-        }
-      }
-#endif
-      for (long i = i0; i < count; ++i) {
-        long k = start + i;
-        u64 in[12], swp;
-        for (int j = 0; j < 12; ++j) {
-          if (wread(w, pos_in[k * 12 + j], &in[j])) {
-            err_info[0] = pos_in[k * 12 + j];
-            return 1;
-          }
-        }
-        if (wread(w, pos_swap[k], &swp)) { err_info[0] = pos_swap[k]; return 1; }
-        const long *ids = pos_internal + k * n_internal;
-        u64 s[12], tmp[12], pre[12], dl[4];
-        long sp = 0;
-        for (int j = 0; j < 4; ++j) {
-          dl[j] = gmul(swp, gsub(in[j + 4], in[j]));
-          if (int rc_ = wwrite(w, ids[sp], dl[j])) { err_info[0] = ids[sp]; return rc_; }
-          ++sp;
-        }
-        for (int j = 0; j < 4; ++j) s[j] = gadd(in[j], dl[j]);
-        for (int j = 0; j < 4; ++j) s[j + 4] = gsub(in[j + 4], dl[j]);
-        for (int j = 8; j < 12; ++j) s[j] = in[j];
-        for (int j = 0; j < 12; ++j) tmp[j] = sbox7(gadd(s[j], rc[j]));
-        mds(m, tmp, s);
-        for (int r = 1; r < half_full; ++r) {
-          const u64 *rcr = rc + r * 12;
-          for (int j = 0; j < 12; ++j) {
-            pre[j] = gadd(s[j], rcr[j]);
-            if (int rc_ = wwrite(w, ids[sp], pre[j])) { err_info[0] = ids[sp]; return rc_; }
-            ++sp;
-            tmp[j] = sbox7(pre[j]);
-          }
-          mds(m, tmp, s);
-        }
-        for (int pr = 0; pr < n_partial; ++pr) {
-          const u64 *rcr = rc + (half_full + pr) * 12;
-          for (int j = 0; j < 12; ++j) pre[j] = gadd(s[j], rcr[j]);
-          if (int rc_ = wwrite(w, ids[sp], pre[0])) { err_info[0] = ids[sp]; return rc_; }
-          ++sp;
-          pre[0] = sbox7(pre[0]);
-          mds(m, pre, s);
-        }
-        for (int r = 0; r < half_full; ++r) {
-          const u64 *rcr = rc + (half_full + n_partial + r) * 12;
-          for (int j = 0; j < 12; ++j) {
-            pre[j] = gadd(s[j], rcr[j]);
-            if (int rc_ = wwrite(w, ids[sp], pre[j])) { err_info[0] = ids[sp]; return rc_; }
-            ++sp;
-            tmp[j] = sbox7(pre[j]);
-          }
-          mds(m, tmp, s);
-        }
-        for (int j = 0; j < 12; ++j) {
-          if (int rc_ = wwrite(w, pos_out[k * 12 + j], s[j])) {
-            err_info[0] = pos_out[k * 12 + j];
-            return rc_;
-          }
-        }
-      }
-      break;
-    }
-    default:
+    long kind = row[0], count = row[2];
+    if (kind < 0 || kind > 4) {
       err_info[0] = kind;
-      return 99;
+      return finish(99);
     }
+    items += count;
+    bool split = bi <= last_split && splits(row);
+    if (split && !asked) { // the pool, at the run's first split batch
+      asked = true;
+      WitnessPool *found = WitnessPool::instance();
+      if (found && found->try_acquire()) {
+        pool = found;
+        threads = max_threads > 0 ? std::min(max_threads, pool->size()) : pool->size();
+      }
+    }
+    Fail f{};
+    if (split && threads > 1) {
+      SplitBatch b{&p, &w, row, threads, {}};
+      pool->run(threads, SplitBatch::run_part, &b);
+      split_items += count;
+      if (bi == last_split) {
+        pool->release();
+        pool = nullptr;
+      }
+      const Fail *first = nullptr;
+      for (int k = 0; k < threads; ++k)
+        if (b.part[k].fail.code && (!first || b.part[k].fail.item < first->item))
+          first = &b.part[k].fail;
+      if (!first) continue;
+      f = *first;
+    } else if (!run_range(p, w, row, 0, count, &f)) {
+      continue;
+    }
+    for (int j = 0; j < 3; ++j) err_info[j] = f.info[j];
+    return finish(f.code);
   }
-  return 0;
+  return finish(0);
 }
 
 // ---------------------------------------------------------------------------

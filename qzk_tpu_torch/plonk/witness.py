@@ -10,7 +10,9 @@ generator list (already topologically ordered by construction) is
 levelized once at build time into batches of independent same-kind
 generators; each batch executes as one vectorized numpy sweep (Poseidon
 batches run the full (B, 12) batched permutation).  This keeps host-side
-witness generation off the critical path.  The partial witness holds its
+witness generation off the critical path.  The native executor runs the
+wide batches whose items touch disjoint roots on a few host threads
+(_NativePlan, native/poseidon_native.cc).  The partial witness holds its
 values as arrays indexed by target, set and read in bulk: a chunk fill
 is a few array calls, and seeding the generators one scatter.
 """
@@ -230,10 +232,29 @@ def compile_generators(builder) -> GeneratorBatches:
     )
 
 
+# The narrowest batches the native executor splits across its threads,
+# in items: below them a batch takes less time than handing it out.
+SPLIT_MIN_ARITH = 512
+SPLIT_MIN_POSEIDON = 16  # two 8-way groups
+# The fewest items a plan's splittable batches hold for it to split any:
+# fewer take less time alone than waking the sleeping threads costs.
+SPLIT_MIN_PLAN = 1 << 15
+
+
+def _may_split(outs: np.ndarray, ins: np.ndarray) -> bool:
+    """Whether a batch's items may run in any order, on several threads:
+    its output roots pairwise distinct and none of them an input root."""
+    return len(np.unique(outs)) == len(outs) and not np.isin(outs, ins).any()
+
+
 class _NativePlan:
     """Flat-array encoding of a GeneratorBatches plan for the one-call
     C executor (native/poseidon_native.cc run_witness_plan).  All ids
-    are pre-resolved union-find roots; built once per circuit."""
+    are pre-resolved union-find roots; built once per circuit.  The last
+    column of `batch_table` is 1 for an arith or Poseidon batch that the
+    executor may split across threads: at least SPLIT_MIN_ARITH or
+    SPLIT_MIN_POSEIDON items wide, and _may_split, in a plan whose such
+    batches hold SPLIT_MIN_PLAN items or more."""
 
     def __init__(self, plan: "GeneratorBatches"):
         from ..ops import poseidon as pos
@@ -313,6 +334,22 @@ class _NativePlan:
         self.pos_in, self.pos_swap = i64(pos_in), i64(pos_swap)
         self.pos_internal, self.pos_out = i64(pos_internal), i64(pos_out)
 
+        n_int = len(canonical)
+        for row in self.batch_table:
+            kind, s, c = (int(x) for x in row[:3])
+            if kind == 1 and c >= SPLIT_MIN_ARITH:
+                e = slice(s, s + c)
+                ins = (self.arith_m0[e], self.arith_m1[e], self.arith_a[e])
+                row[5] = _may_split(self.arith_out[e], np.concatenate(ins))
+            elif kind == 4 and c >= SPLIT_MIN_POSEIDON:
+                outs = (self.pos_out[12 * s:12 * (s + c)],
+                        self.pos_internal[n_int * s:n_int * (s + c)])
+                ins = (self.pos_in[12 * s:12 * (s + c)], self.pos_swap[s:s + c])
+                row[5] = _may_split(np.concatenate(outs), np.concatenate(ins))
+        table = self.batch_table
+        if table[table[:, 5] == 1, 2].sum() < SPLIT_MIN_PLAN:
+            table[:, 5] = 0
+
 
 def _native_plan_for(plan: GeneratorBatches) -> "_NativePlan | None":
     try:
@@ -334,10 +371,14 @@ def run_generators(
     """Execute all generator batches; returns (values, known) arrays
     indexed by union-find root.  The span "witness.generators", with the
     attributes `values` (the targets seeded) and `set_calls` (the set_*
-    calls that set them)."""
+    calls that set them), and at its end `threads` (the threads the
+    generators ran on), `split_items` (the items of the batches split
+    across them) and `items` (all the generators)."""
     with spans.span("witness.generators",
                     attrs={"values": pw.num_values, "set_calls": pw.set_calls}):
-        return _run_generators(plan, pw)
+        values, known, (threads, split_items, items) = _run_generators(plan, pw)
+        spans.set_attrs(threads=threads, split_items=split_items, items=items)
+        return values, known
 
 
 def _seed_conflict(ts, vs, order, rs) -> int:
@@ -378,7 +419,7 @@ def _run_generators(plan: GeneratorBatches, pw: PartialWitness):
         if result is not None:
             code, err = result
             if code == 0:
-                return values, known
+                return values, known, tuple(int(x) for x in err[4:7])
             if code == 1:
                 raise ValueError(f"witness targets not set: [{err[0]}]")
             if code == 2:
@@ -452,4 +493,4 @@ def _run_generators(plan: GeneratorBatches, pw: PartialWitness):
             )  # (B, n_internal)
             write(internal_ts, per_row.ravel())
             write([t for i in items for t in i[3]], outs.ravel())
-    return values, known
+    return values, known, (1, 0, sum(len(items) for _, items in plan.batches))

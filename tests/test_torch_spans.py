@@ -176,6 +176,18 @@ def test_spans_form_one_request_ending_the_phases_at_the_marks(case):
     assert by["fused.replay"].device_ms is None  # no device time on the CPU
 
 
+def test_generators_span_carries_threads_and_split_items(case):
+    """The generators' span holds the threads they ran on, the items of
+    the batches split across them and all their items: the small
+    circuit's batches are too narrow to split."""
+    *_, timer = case
+    gen = [s for s in spans.spans_of(timer) if s.name == "witness.generators"]
+    assert len(gen) == 1
+    attrs = gen[0].attrs
+    assert 0 <= attrs["split_items"] <= attrs["items"] and attrs["items"] > 0
+    assert (attrs["threads"], attrs["split_items"]) == (1, 0)
+
+
 def test_lock_wait_covers_a_lock_held_elsewhere(circuits, monkeypatch):
     """A thread holds the context's lock until the prove has asked for
     it, then 0.2 s more: the prove's lock wait spans that time."""

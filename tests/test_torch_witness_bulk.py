@@ -315,5 +315,7 @@ def test_generators_span_carries_values_and_set_calls(chunk):
         wit.run_generators(plan, pw)
     gen = [s for s in spans.spans_of(timer) if s.name == "witness.generators"]
     assert len(gen) == 1
-    assert gen[0].attrs == {"values": len(ref.values), "set_calls": 3}
+    attrs = gen[0].attrs
+    assert set(attrs) == {"values", "set_calls", "threads", "split_items", "items"}
+    assert (attrs["values"], attrs["set_calls"]) == (len(ref.values), 3)
     assert len(ref.values) == 34442 and ref.calls > 3
